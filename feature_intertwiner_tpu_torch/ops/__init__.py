@@ -1,0 +1,1 @@
+"""Array ops of the port; see the package docstring."""
