@@ -46,7 +46,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
 H100_FP32_OPS_PER_S = 67e12     # fp32 outside the tensor cores
-IOU_OPS = 25                    # fp32 operations of one IoU and its compare
+# fp32 operations of greedy NMS, counted on ops/nms.py::_pairwise_iou with
+# each box's area computed once: per pair 4 max/min, 4 sub/add (the two
+# extents), 2 clamps, 1 mul (intersection), 2 add/sub (union), 1 div and the
+# threshold compare; per box 2 sub, 2 add and 1 mul (its area)
+IOU_OPS_PER_PAIR = 4 + 4 + 2 + 1 + 2 + 1 + 1
+AREA_OPS_PER_BOX = 2 + 2 + 1
 ROI_OPS_PER_VALUE = 6           # three lerps of one pooled value
 
 
@@ -122,6 +127,28 @@ def seeded_model(build_model, cfg, seed, device=None):
         model.rpn.conv_class.weight.mul_(0.1)
         model.rpn.conv_bbox.weight.mul_(0.1)
     return model
+
+
+def greedy_pairs(nms_ops, boxes, valid, alive, thr, plus_one, strict) -> int:
+    """The IoUs greedy NMS must compute on this data: each kept box i
+    against every later valid box j that no kept box before i has removed,
+    that is, whose first kept suppressor s(j) is i or later. Counted per
+    image from the full suppression matrix of the plain IoU."""
+    import torch
+
+    n = boxes.shape[1]
+    idx = torch.arange(n, device=boxes.device)
+    none = torch.tensor(n, device=boxes.device)
+    total = 0
+    for b in range(boxes.shape[0]):
+        supp = nms_ops._suppresses(nms_ops._pairwise_iou(boxes[b], boxes[b], plus_one), thr, strict)
+        supp &= (idx[:, None] < idx[None, :]) & alive[b, :, None]
+        first = torch.where(supp, idx[:, None], none).amin(0)      # s(j), n if none
+        kept_upto = alive[b].long().cumsum(0)                       # kept boxes in [0, i]
+        kept_before = kept_upto - alive[b].long()
+        count = torch.where(first == n, kept_before, kept_upto[first.clamp_max(n - 1)])
+        total += int(count[valid[b]].sum())
+    return total
 
 
 class Recorder:
@@ -343,7 +370,7 @@ def main() -> int:
         for plus_one, strict in ((True, True), (False, False)):
             cases.append(((ties, valid.contiguous(), 0.7), {"plus_one": plus_one, "strict": strict},
                           f"ties plus_one={plus_one} strict={strict}"))
-        mism, ms, plain_ms, pairs, nbytes = 0, 0.0, 0.0, 0, 0
+        mism, ms, plain_ms, pairs, n_valid, nbytes = 0, 0.0, 0.0, 0, 0, 0
         for args, kwargs, label in cases:
             boxes, valid = args[0], args[1]
             thr = args[2]
@@ -357,19 +384,22 @@ def main() -> int:
             if label == "main path":
                 k_ms = cuda_ms(torch, lambda: nms_ops.nms_alive(boxes, valid, thr, **opts), 20)
                 p_ms = cuda_ms(torch, lambda: nms_ops.greedy_alive_sorted_plain(boxes, valid, thr, **opts), 2)
-                # pairs this run's data needs: each kept box against every
-                # later valid box
-                later_valid = valid.flip(1).cumsum(1).flip(1) - valid.to(torch.int64)
-                p = int((later_valid * got).sum())
+                p = greedy_pairs(nms_ops, boxes, valid, got, thr, **opts)
                 pairs += p
+                n_valid += int(valid.sum())
                 nbytes += boxes.numel() * 4 + valid.numel() * 2
                 ms, plain_ms = ms + k_ms, plain_ms + p_ms
                 line += f", {k_ms:.4f} ms, plain {p_ms:.2f} ms, {p} IoU pairs needed"
             log(line)
         if mism:
             raise AssertionError(f"NMS kernel differs from its plain version in {mism} rows")
-        t_ops = pairs * IOU_OPS / H100_FP32_OPS_PER_S * 1e3
+        n_ops = pairs * IOU_OPS_PER_PAIR + n_valid * AREA_OPS_PER_BOX
+        t_ops = n_ops / H100_FP32_OPS_PER_S * 1e3
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        log(f"  nms_alive bound: {pairs} IoU pairs x {IOU_OPS_PER_PAIR} ops + {n_valid} valid "
+            f"boxes x {AREA_OPS_PER_BOX} ops = {n_ops} fp32 ops -> {t_ops:.6f} ms at "
+            f"{H100_FP32_OPS_PER_S:.3g}/s; {nbytes} bytes -> {t_bytes:.6f} ms at "
+            f"{H100_BYTES_PER_S:.3g} B/s")
         kernels.append({
             "name": "nms_alive", "route": "cuda",
             "source": "feature_intertwiner_tpu_torch/csrc/nms.cu",

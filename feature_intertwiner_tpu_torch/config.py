@@ -204,13 +204,11 @@ def _default_tree() -> AttrDict:
         COMPILE_CACHE_DIR="",
     )
 
-    # The port's own options.
-    cfg.CUDA = AttrDict(
-        # Device that build_model() puts the model on when the caller names
-        # none. It is never changed silently: without a card, build_model
-        # raises unless the caller asks for "cpu".
-        DEVICE="cuda",
-    )
+    # The port's own options, none yet. The namespace exists before any
+    # merge so that a YAML file may hold a CUDA section, and a key the port
+    # does not have is rejected there as anywhere else. The device is an
+    # argument of the entry points, not an option.
+    cfg.CUDA = AttrDict()
 
     return cfg
 

@@ -1,8 +1,8 @@
 """Entry points: build the model, and detect objects in images.
 
 ``build_model(cfg)`` and ``detect(model, images, cfg)`` are what a user
-calls. They run on the card (``cfg.CUDA.DEVICE``, ``"cuda"``) unless the
-caller asks for ``device="cpu"``, and raise when no card is present.
+calls. They run on the card (``"cuda"``) unless the caller asks for
+``device="cpu"``, and raise when no card is present.
 
 The host steps around the model are ports of the JAX package's
 ``train/workflow.py::mold_inputs``/``unmold_detections`` and
@@ -25,11 +25,11 @@ from .models.common import init_weights
 from .models.detector import InterNet
 
 
-def resolve_device(cfg, device=None) -> torch.device:
+def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` if given, else
-    ``cfg.CUDA.DEVICE``. Raises when that is a CUDA device and none is
-    present; the port never moves to the CPU on its own."""
-    dev = torch.device(device if device is not None else cfg.CUDA.DEVICE)
+    ``"cuda"``. Raises when that is a CUDA device and none is present; the
+    port never moves to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; the port runs on the GPU by "
@@ -38,11 +38,11 @@ def resolve_device(cfg, device=None) -> torch.device:
 
 
 def build_model(cfg, device=None, seed: Optional[int] = None) -> InterNet:
-    """InterNet in eval mode on ``device`` (default ``cfg.CUDA.DEVICE``),
+    """InterNet in eval mode on ``device`` (default ``"cuda"``),
     channels-last. ``seed`` draws random weights from a CPU generator (the
     JAX package's initialisers); without it the weights are torch's
     defaults, to be replaced by ``load_state_dict``."""
-    dev = resolve_device(cfg, device)
+    dev = resolve_device(device)
     model = InterNet.from_config(cfg)
     if seed is not None:
         init_weights(model, torch.Generator().manual_seed(seed))
@@ -67,11 +67,13 @@ def _bilinear(image: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return x[0] if image.dim() == 2 else x.permute(1, 2, 0)
 
 
-def mold_inputs(images: Sequence[np.ndarray], cfg, device="cpu"
+def mold_inputs(images: Sequence[np.ndarray], cfg, device=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Resize (aspect kept), centre-pad to IMAGE_MAX_DIM², subtract the mean
-    pixel. Returns (molded [B, S, S, 3] float32, windows [B, 4] float32:
-    each image's un-padded region as pixel (y1, x1, y2, x2))."""
+    pixel, on ``device`` (default ``"cuda"``). Returns (molded [B, S, S, 3]
+    float32, windows [B, 4] float32: each image's un-padded region as pixel
+    (y1, x1, y2, x2))."""
+    device = resolve_device(device)
     s = int(cfg.DATA.IMAGE_MAX_DIM)
     mean = torch.as_tensor(np.asarray(cfg.DATA.MEAN_PIXEL, np.float32), device=device)
     molded, windows = [], []

@@ -52,15 +52,15 @@ def greedy_alive_sorted_plain(
     iou_threshold: float,
     plus_one: bool = True,
     strict: bool = True,
-    block: int = TILE,
 ) -> torch.Tensor:
-    """Plain version of the alive-mask kernel: the JAX block sweep.
+    """Plain version of the alive-mask kernel: the JAX block sweep, one
+    ``TILE`` of rows per block.
 
-    boxes [B, N, 4] sorted by descending score, N a multiple of ``block``;
+    boxes [B, N, 4] sorted by descending score, N a multiple of ``TILE``;
     valid [B, N] bool. For each block: earlier survivors suppress its
     candidates, then the in-block greedy recurrence is iterated to its
     fixpoint (unique, and equal to the greedy answer)."""
-    n = boxes.shape[1]
+    n, block = boxes.shape[1], TILE
     positions = torch.arange(n, device=boxes.device)
     tri = positions[:block, None] < positions[None, :block]
     alive = valid.clone()
@@ -130,7 +130,8 @@ def nms_alive(
                  float(iou_threshold), int(plus_one), int(strict),
                  mask.data_ptr(), alive.data_ptr(), stream)
     cuda_build.check(err, "nms_alive")
-    cuda_build.launches["nms_alive"] += 1
+    if bsz * n > 0:  # the C entry launches nothing for no boxes
+        cuda_build.launches["nms_alive"] += 1
     return alive
 
 

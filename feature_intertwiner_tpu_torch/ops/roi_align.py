@@ -187,6 +187,8 @@ def roi_align_fwd(
     n = boxes.shape[0]
     if box_indices.shape != (n,) or level_idx.shape != (n,):
         raise ValueError("box_indices and level_idx must be [N]")
+    if box_indices.device != dev or level_idx.device != dev:
+        raise ValueError("box_indices and level_idx must be on the boxes' device")
     ch, cw = (int(s) for s in crop_size)
     if dev.type == "cpu":
         return multilevel_gather_plain(features, boxes, box_indices, level_idx,
@@ -220,7 +222,8 @@ def roi_align_fwd(
                  lidx.data_ptr(), n, ch, cw, reciprocal(ch), reciprocal(cw),
                  float(extrapolation_value), out.data_ptr(), stream)
     cuda_build.check(err, "roi_align_fwd")
-    cuda_build.launches["roi_align_fwd"] += 1
+    if n > 0:  # the C entry launches nothing for no boxes
+        cuda_build.launches["roi_align_fwd"] += 1
     return out
 
 

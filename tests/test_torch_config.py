@@ -29,7 +29,7 @@ def test_every_repo_yaml_matches_the_jax_config(yaml_file):
     """Same defaults, same merge: the port's tree is the JAX tree plus CUDA."""
     got = build_config(config_file=yaml_file).to_dict()
     want = jax_build_config(config_file=yaml_file).to_dict()
-    assert got.pop("CUDA") == {"DEVICE": "cuda"}
+    assert got.pop("CUDA") == {}
     assert got == want
 
 
@@ -47,11 +47,11 @@ def test_unknown_keys_are_rejected(tmp_path):
 
 def test_cuda_and_tpu_namespaces_parse(tmp_path):
     p = tmp_path / "cfg.yaml"
-    p.write_text("CUDA:\n  DEVICE: cpu\nTPU:\n  ROI_WINDOW_KERNEL: false\n  ROI_WINDOW_SIZE: 64\n")
+    p.write_text("CUDA: {}\nTPU:\n  ROI_WINDOW_KERNEL: false\n  ROI_WINDOW_SIZE: 64\n")
     cfg = Config()
     cfg.merge_from_file(str(p))
     cfg.merge_from_list(["TPU.REMAT_BACKBONE", "False", "TPU.MESH_DATA", "4"])
     cfg.finalize()
-    assert cfg.CUDA.DEVICE == "cpu"
+    assert cfg.CUDA == {}
     assert cfg.TPU.ROI_WINDOW_KERNEL is False and cfg.TPU.ROI_WINDOW_SIZE == 64
     np.testing.assert_array_equal(cfg.MODEL.BACKBONE_SHAPES[0], [256, 256])

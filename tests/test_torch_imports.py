@@ -8,6 +8,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -71,6 +72,7 @@ def test_sources_import_nothing_forbidden(path):
 def test_entry_points_default_to_the_gpu(monkeypatch):
     from feature_intertwiner_tpu_torch import build_model
     from feature_intertwiner_tpu_torch.config import build_config
+    from feature_intertwiner_tpu_torch.inference import mold_inputs
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = build_config()
@@ -78,3 +80,5 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mold_inputs([np.zeros((8, 8, 3), np.uint8)], cfg)

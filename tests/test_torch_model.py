@@ -371,7 +371,7 @@ def test_mold_inputs_matches_jax():
     rng = np.random.RandomState(9)
     images = [rng.randint(0, 256, shape).astype(np.uint8)
               for shape in ((60, 90, 3), (150, 100, 3), (96, 128, 3))]
-    got, got_win = mold_inputs(images, cfg)
+    got, got_win = mold_inputs(images, cfg, "cpu")
     want, _, want_win = jax_workflow.mold_inputs(images, jcfg)
     assert got.shape == want.shape == (3, 128, 128, 3)
     np.testing.assert_array_equal(got_win.numpy(), want_win)

@@ -149,9 +149,12 @@ def test_nms_alive_matches_pallas_kernel_and_sweep(kind, plus_one, strict):
         for i in range(bsz)])
     np.testing.assert_array_equal(got, pallas)
     np.testing.assert_array_equal(got, sweep)
-    # the plain version does not depend on its block size
-    np.testing.assert_array_equal(
-        greedy_alive_sorted_plain(T(bx), T(va), 0.6, plus_one, strict, block=128).numpy(), got)
+    # the sweep does not depend on its block size: the JAX sweep at twice
+    # the plain version's block agrees too
+    np.testing.assert_array_equal(greedy_alive_sorted_plain(T(bx), T(va), 0.6, plus_one, strict).numpy(),
+                                  np.stack([np.asarray(_greedy_alive_sorted(
+                                      jnp.asarray(bx[i]), jnp.asarray(va[i]), 0.6, plus_one, strict, 128))
+                                      for i in range(bsz)]))
 
 
 def test_nms_alive_checks_its_inputs():
