@@ -22,9 +22,26 @@ Phases, each of which must pass:
    a PyTorch yardstick;
 5. breakdown: the forward's device time by kernel family (torch.profiler)
    and the device's busy share, reported and not checked;
-6. reference: a small model runs on the card and on the CPU (plain
+6. train path: the flagship recipe trained through ``Trainer`` and
+   ``train_model``, stages heads, 4+ and all of one epoch each over 8
+   synthetic 1024² images at batch 4 (6 steps). The counters are set to 0
+   before the run and read after it: per step the RoIAlign forward launches
+   5 times (7² and 14² on the make-up maps, a 14² big-set crop on each of
+   P2-P4), its backward twice and the NMS kernel at least once. Losses must
+   be finite, frozen parameters bit-equal, trainable ones moved, one step
+   must have positive RoIs and a non-zero meta loss, and a fresh Trainer
+   must restore the same weights, momentum and buffer from the newest
+   checkpoint. Then the step time per stage (median of 5), the peak memory
+   and one 'all' step's device time by kernel family;
+7. kernel_roi_align_bwd: the RoIAlign backward replayed on the last train
+   step's cotangents, within 1e-5 of its plain version relative to the
+   largest gradient and bit-equal over two launches, timed beside its plain
+   version, its bound and grid_sample's backward;
+8. reference: a small model runs on the card and on the CPU (plain
    versions) from the same weights and inputs; the pyramid, and the
-   detections of the second stage fed the same proposals, must agree.
+   detections of the second stage fed the same proposals, must agree; then
+   one train step from the same weights, batch, draws and proposals: losses
+   within 1e-4 relative, parameters within 1e-5, the buffer within 1e-4.
 
 Float32 throughout: TF32 is switched off for cuDNN convolutions and for
 matmuls. The last three lines are a JSON object with one entry per kernel,
@@ -36,6 +53,7 @@ them.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -53,6 +71,21 @@ H100_FP32_OPS_PER_S = 67e12     # fp32 outside the tensor cores
 IOU_OPS_PER_PAIR = 4 + 4 + 2 + 1 + 2 + 1 + 1
 AREA_OPS_PER_BOX = 2 + 2 + 1
 ROI_OPS_PER_VALUE = 6           # three lerps of one pooled value
+EPS32 = 2.0 ** -23              # float32 machine epsilon
+# the RoIAlign gradient per valid sample and channel: a = g ly and g - a,
+# then per tap row p lx and p - p lx, and the four adds into the map
+ROI_BWD_OPS_PER_VALUE = 2 + 4 + 4
+# The synthetic training set of the train path (data/synthetic.py): 1024²
+# canvases, so that molding neither scales nor pads them, with up to 24
+# instances of 30-512 px each, so that the random model's proposals meet
+# some of them at IoU 0.5 on FPN levels 3 to 5, where one positive RoI feeds
+# both the small set of its level and the reliable set of the level below
+TRAIN_DATA = dict(seed=0, size=(1024, 1024), max_instances=24)
+# Output-conv scales of P2, P3 and P4 for the train path's random model:
+# its P2 objectness spreads about 3x wider than the other levels', so that
+# untempered every one of the 1000 proposals is a 32-px P2 anchor and no
+# RoI is positive
+TRAIN_FPN_SCALES = {2: 0.1, 3: 0.2, 4: 0.5}
 
 
 def log(msg: str) -> None:
@@ -129,6 +162,18 @@ def seeded_model(build_model, cfg, seed, device=None):
     return model
 
 
+def temper_fpn(model):
+    """Scale the P2-P4 FPN output convs by ``TRAIN_FPN_SCALES``."""
+    import torch
+
+    with torch.no_grad():
+        for level, scale in TRAIN_FPN_SCALES.items():
+            conv = getattr(model.fpn, f"P{level}_conv2")[1]
+            conv.weight.mul_(scale)
+            conv.bias.mul_(scale)
+    return model
+
+
 def greedy_pairs(nms_ops, boxes, valid, alive, thr, plus_one, strict) -> int:
     """The IoUs greedy NMS must compute on this data: each kept box i
     against every later valid box j that no kept box before i has removed,
@@ -170,6 +215,68 @@ class Recorder:
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.original)
         return False
+
+
+def box_grid(torch, boxes, crop, batch):
+    """``grid_sample``'s grid for the crops of ``boxes`` [N, 4] (normalised,
+    N a multiple of ``batch``, in image order): [batch, N / batch * ch, cw, 2]
+    in [-1, 1], sampling the box corners as ``align_corners=True`` does."""
+    n, (ch, cw) = boxes.shape[0], crop
+    ys = torch.linspace(0, 1, ch, device=boxes.device)
+    xs = torch.linspace(0, 1, cw, device=boxes.device)
+    by = boxes[:, 0:1] + (boxes[:, 2:3] - boxes[:, 0:1]) * ys
+    bx = boxes[:, 1:2] + (boxes[:, 3:4] - boxes[:, 1:2]) * xs
+    grid = torch.stack([bx[:, None, :].expand(n, ch, cw),
+                        by[:, :, None].expand(n, ch, cw)], dim=-1) * 2 - 1
+    return grid.reshape(batch, n // batch * ch, cw, 2)
+
+
+def profile_by_family(torch, fn, reps, families):
+    """Device time of ``reps`` calls of ``fn`` by kernel family
+    (torch.profiler), and the wall time per call. Returns (wall ms, device
+    ms, {family: ms}, top kernels [(name, ms)]), all per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kernels_us = {}
+    for e in prof.key_averages():
+        # device kernels only: the aten ops above them, and their ranges
+        # on the device's timeline, carry the same time again
+        if (e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False)
+                or e.key.startswith("aten::")):
+            continue
+        us = e.self_device_time_total
+        if us > 0:
+            kernels_us[e.key] = kernels_us.get(e.key, 0) + us
+    total_ms = sum(kernels_us.values()) / 1e3 / reps
+    by_family = {}
+    for name, us in kernels_us.items():
+        low = name.lower()
+        fam = next((f for f, keys in families.items() if any(k in low for k in keys)), "other")
+        by_family[fam] = by_family.get(fam, 0) + us / 1e3 / reps
+    top = [(name, us / 1e3 / reps) for name, us in
+           sorted(kernels_us.items(), key=lambda kv: -kv[1])[:12]]
+    return wall_ms, total_ms, by_family, top
+
+
+def log_breakdown(label, wall_ms, total_ms, by_family, top):
+    if total_ms == 0:
+        log(f"{label} not measured: the profiler saw no device time")
+        return
+    log(f"{label} wall {wall_ms:.2f} ms under the profiler, device busy "
+        f"{total_ms:.2f} ms ({100 * total_ms / wall_ms:.1f}%)")
+    for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        log(f"  {fam:26s} {ms:8.3f} ms  {100 * ms / total_ms:5.1f}%")
+    for name, ms in top:
+        log(f"    {ms:8.3f} ms  {name[:90]}")
 
 
 def main() -> int:
@@ -319,20 +426,13 @@ def main() -> int:
             p_ms = cuda_ms(torch, lambda: roi_ops.multilevel_gather_plain(feats, boxes, bidx, lidx, crop, extrap), 5)
             # yardstick: one grid_sample over P2 for every box of the call
             p2 = feats[0].permute(0, 3, 1, 2)
-            b = p2.shape[0]
             n, (ch, cw) = boxes.shape[0], crop
-            ys = torch.linspace(0, 1, ch, device=boxes.device)
-            xs = torch.linspace(0, 1, cw, device=boxes.device)
-            by = boxes[:, 0:1] + (boxes[:, 2:3] - boxes[:, 0:1]) * ys
-            bx = boxes[:, 1:2] + (boxes[:, 3:4] - boxes[:, 1:2]) * xs
-            grid = torch.stack([bx[:, None, :].expand(n, ch, cw),
-                                by[:, :, None].expand(n, ch, cw)], dim=-1) * 2 - 1
-            grid = grid.reshape(b, n // b * ch, cw, 2)
+            grid = box_grid(torch, boxes, crop, p2.shape[0])
             l_ms = cuda_ms(torch, lambda: torch.nn.functional.grid_sample(
                 p2, grid, mode="bilinear", padding_mode="zeros", align_corners=True), 20)
             # least bytes: the distinct tap rows that valid samples read,
             # the boxes and indices, and the crops written once
-            taps, _, _, valid = roi_ops.tap_rows(feats, boxes, bidx, lidx, crop)
+            taps, _, _, valid = roi_ops.tap_rows([f.shape for f in feats], boxes, bidx, lidx, crop)
             rows = torch.cat([t[valid] for t in taps]).unique().numel()
             c = feats[0].shape[3]
             nbytes = rows * c * 4 + n * 24 + n * ch * cw * c * 4
@@ -417,65 +517,252 @@ def main() -> int:
         failures.append("kernels (main path failed)")
 
     # 5. where the forward's device time goes -----------------------------------
+    families = {"convolution": ("conv", "gemm", "xmma", "cudnn", "sm90_", "sm80_", "winograd"),
+                "roi_align_fwd (K1)": ("roi_align_fwd",),
+                "roi_align_bwd (K3)": ("roi_align_bwd",),
+                "nms (K2)": ("nms_mask", "nms_sweep"),
+                "sort": ("sort", "radix"),
+                "scatter / gather / index": ("scatter", "gather", "index"),
+                "optimizer (SGD)": ("multi_tensor", "foreach"),
+                "batch norm / elementwise": (
+                    "batch_norm", "elementwise", "vectorized", "bn_", "relu", "reduce")}
+
     def breakdown():
         """Device time of three forwards by kernel family (torch.profiler),
         and the device's busy share of their wall time. Informational: a
         profiler that sees no device time is reported, not failed."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
         model, molded, windows = state["model"], state["molded"], state["windows"]
-        reps = 3
         with torch.inference_mode():
-            model.forward_inference(molded, windows)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(reps):
-                    model.forward_inference(molded, windows)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-        kernels_us = {}
-        for e in prof.key_averages():
-            # device kernels only: the aten ops above them, and their ranges
-            # on the device's timeline, carry the same time again
-            if (e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False)
-                    or e.key.startswith("aten::")):
-                continue
-            us = e.self_device_time_total
-            if us > 0:
-                kernels_us[e.key] = kernels_us.get(e.key, 0) + us
-        total_ms = sum(kernels_us.values()) / 1e3 / reps
-        families = {"convolution": ("conv", "gemm", "xmma", "cudnn", "sm90_", "sm80_", "winograd"),
-                    "roi_align_fwd (K1)": ("roi_align_fwd",), "nms (K2)": ("nms_mask", "nms_sweep"),
-                    "sort": ("sort", "radix"), "batch norm / elementwise": (
-                        "batch_norm", "elementwise", "vectorized", "bn_", "relu")}
-        by_family = {}
-        for name, us in kernels_us.items():
-            low = name.lower()
-            fam = next((f for f, keys in families.items() if any(k in low for k in keys)), "other")
-            by_family[fam] = by_family.get(fam, 0) + us / 1e3 / reps
-        top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:12]
-        if total_ms == 0:
-            log("BREAKDOWN not measured: the profiler saw no device time")
-        else:
-            log(f"BREAKDOWN forward wall {wall_ms:.2f} ms under the profiler, device busy "
-                f"{total_ms:.2f} ms ({100 * total_ms / wall_ms:.1f}%)")
-            for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
-                log(f"  {fam:26s} {ms:8.3f} ms  {100 * ms / total_ms:5.1f}%")
-            for name, us in top:
-                log(f"    {us / 1e3 / reps:8.3f} ms  {name[:90]}")
+            out = profile_by_family(torch, lambda: model.forward_inference(molded, windows),
+                                    3, families)
+        log_breakdown("BREAKDOWN forward", *out)
 
     if "main_path" not in failures:
         phase("breakdown", breakdown)
+    state.pop("model", None)   # frees the inference model before training
+
+    # 6. the training main path ------------------------------------------------
+    train = {}
+
+    def train_path():
+        """The flagship recipe trained through Trainer/train_model: three
+        stages (heads, 4+, all) of one epoch each over 8 in-memory synthetic
+        images at batch 4, 2 steps per stage; then a fresh Trainer resumes
+        from the newest checkpoint and must hold the same state."""
+        import shutil
+        import tempfile
+
+        from feature_intertwiner_tpu_torch.data import synthetic
+        from feature_intertwiner_tpu_torch.data.loader import DetectionDataset, Loader
+        from feature_intertwiner_tpu_torch.train import workflow
+
+        tcfg = build_config("meta_105_quick_1", "train", opts=list(FLAGSHIP_OVERRIDES) + [
+            "TRAIN.DO_VALIDATION", "False", "TRAIN.SCHEDULE", "[1, 1, 1]",
+            "TRAIN.KEEP_CHECKPOINTS", "2", "CTRL.SHOW_INTERVAL", "1"])
+        folder = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=os.path.join(ROOT, "build"))
+        tcfg.MISC.RESULT_FOLDER = folder
+        tcfg.MISC.LOG_FILE = os.path.join(folder, "log.txt")
+        data = synthetic.generate(num_images=8, **TRAIN_DATA)
+        loader = Loader(DetectionDataset(data, tcfg, augment=True, seed=tcfg.MISC.SEED),
+                        batch_size=tcfg.TRAIN.BATCH_SIZE, shuffle=True, seed=tcfg.MISC.SEED)
+        model = temper_fpn(seeded_model(build_model, tcfg, seed=0))
+        trainer = workflow.Trainer(model, tcfg).resume()
+        steps = []
+        step_fn = workflow.train_step
+
+        def recorded_step(st, cfg_, batch, lr, meta_gate, generator=None, draws=None):
+            """One train step, with its launches, its time (CUDA events) and
+            the parameters it must and must not move."""
+            before = {n: p.detach().clone() for n, p in st.model.named_parameters()}
+            bwd_rec.calls.clear()               # keep the last step's cotangents only
+            counts0 = dict(cuda_build.launches)
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            metrics = step_fn(st, cfg_, batch, lr, meta_gate, generator, draws)
+            t1.record()
+            torch.cuda.synchronize()
+            host = {k: float(v) for k, v in metrics.items()}
+            frozen_moved, should, did = 0, 0, 0
+            for n, p in st.model.named_parameters():
+                moved = not torch.equal(p.detach(), before[n])
+                if not p.requires_grad:
+                    frozen_moved += moved
+                    continue
+                # SGD moves a trainable tensor by lr times its momentum
+                # buffer; it must change where that step exceeds two ulps of
+                # the value (a zero step, e.g. a BN bias of a head that saw no
+                # positive RoI, or one the clip made tiny, may leave it)
+                step = lr * st.optimizer.state[p]["momentum_buffer"].abs()
+                must = bool((step > 2 * EPS32 * before[n].abs()).any())
+                should += must
+                did += moved and must
+                require(moved or not must, f"trainable {n} did not move")
+            launches = {k: cuda_build.launches[k] - counts0.get(k, 0)
+                        for k in ("roi_align_fwd", "roi_align_bwd", "nms_alive")}
+            steps.append(dict(host, ms=t0.elapsed_time(t1), launches=launches,
+                              frozen_moved=frozen_moved, trainable=should, moved=did,
+                              n_frozen=sum(not p.requires_grad for p in st.model.parameters())))
+            return metrics
+
+        torch.cuda.reset_peak_memory_stats()
+        workflow.train_step = recorded_step
+        try:
+            with Recorder(roi_ops, "roi_align_bwd") as bwd_rec:
+                cuda_build.launches.clear()
+                for stage in ("heads", "4+", "all"):
+                    workflow.train_model(trainer, loader, stage)
+                    for s in steps:
+                        s.setdefault("stage", stage)
+                launches = {k: cuda_build.launches[k]
+                            for k in ("roi_align_fwd", "roi_align_bwd", "nms_alive")}
+        finally:
+            workflow.train_step = step_fn
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        log("TRAIN LAUNCHES " + json.dumps(launches))
+        for i, s in enumerate(steps):
+            log(f"TRAIN step {i + 1} [{s['stage']}] "
+                + " ".join(f"{k.replace('_loss', '')} {s[k]:.4f}" for k in (
+                    "total_loss", "rpn_class_loss", "rpn_bbox_loss", "mrcnn_class_loss",
+                    "mrcnn_bbox_loss", "mrcnn_mask_loss", "meta_loss"))
+                + f" | positives {s['positive_rois']:.0f}, small RoIs of a class P2/P3/P4 "
+                f"{s['small_rois_p2']:.0f}/{s['small_rois_p3']:.0f}/{s['small_rois_p4']:.0f}"
+                f" | {s['ms']:.1f} ms | launches {s['launches']} | frozen {s['n_frozen']}"
+                f" (moved {s['frozen_moved']}), trainable that must move {s['trainable']}"
+                f" (moved {s['moved']})")
+        require(len(steps) == 6, f"{len(steps)} train steps, want 6")
+        require(launches["roi_align_fwd"] == 5 * len(steps)
+                and launches["roi_align_bwd"] == 2 * len(steps)
+                and launches["nms_alive"] >= len(steps), f"train launches {launches}")
+        for s in steps:
+            require(s["launches"]["roi_align_fwd"] == 5 and s["launches"]["roi_align_bwd"] == 2
+                    and s["launches"]["nms_alive"] >= 1, f"step launches {s['launches']}")
+            require(all(math.isfinite(s[k]) for k in s if k.endswith("_loss")),
+                    "a non-finite loss")
+            require(s["frozen_moved"] == 0, "a frozen parameter moved")
+        require(all(s["n_frozen"] > 0 for s in steps if s["stage"] == "heads"),
+                "the heads stage froze nothing")
+        require(any(s["positive_rois"] > 0 and s["meta_loss"] > 0 for s in steps),
+                "no step had positive RoIs and a non-zero meta loss")
+        log(f"TRAIN peak memory {peak_gb:.2f} GiB (torch.cuda.max_memory_allocated)")
+
+        # resume: a fresh Trainer takes the newest checkpoint
+        kept = sorted(os.listdir(os.path.join(folder, "checkpoints")))
+        fresh = workflow.Trainer(seeded_model(build_model, tcfg, seed=1), tcfg).resume()
+        sd, sd2 = trainer.state.model.state_dict(), fresh.state.model.state_dict()
+        params_equal = all(torch.equal(sd[k], sd2[k]) for k in sd)
+        mom = [trainer.state.optimizer.state[p].get("momentum_buffer")
+               for p in trainer.state.model.parameters()]
+        mom2 = [fresh.state.optimizer.state[p].get("momentum_buffer")
+                for p in fresh.state.model.parameters()]
+        mom_equal = all((a is None and b is None) or (a is not None and b is not None
+                                                      and torch.equal(a, b))
+                        for a, b in zip(mom, mom2))
+        buf_equal = (torch.equal(trainer.state.buffer, fresh.state.buffer)
+                     and torch.equal(trainer.state.buffer_cnt, fresh.state.buffer_cnt))
+        log(f"TRAIN checkpoints kept {kept}; resumed at epoch {fresh.epoch} iter {fresh.iter}: "
+            f"params equal {params_equal}, momentum equal {mom_equal}, buffer equal {buf_equal}")
+        require(len(kept) == 2 and params_equal and mom_equal and buf_equal,
+                "the restored state differs from the trained one")
+        del fresh
+
+        # step time per stage: the median of 5 more steps after the run
+        batch = workflow.to_device(next(iter(loader)), "cuda")
+        gen = torch.Generator(device="cuda")
+        per_stage = {}
+        for stage in ("heads", "4+", "all"):
+            workflow.set_trainable(trainer.model, stage)
+            times = []
+            for i in range(5):
+                gen.manual_seed(i)
+                t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0.record()
+                workflow.train_step(trainer.state, tcfg, batch, 1e-4, 1.0, gen)
+                t1.record()
+                torch.cuda.synchronize()
+                times.append(t0.elapsed_time(t1))
+            per_stage[stage] = sorted(times)[2]
+            log(f"TRAIN step ms [{stage}] median {per_stage[stage]:.2f} "
+                f"(runs {', '.join(f'{t:.2f}' for t in times)})")
+        out = profile_by_family(
+            torch, lambda: workflow.train_step(trainer.state, tcfg, batch, 1e-4, 1.0, gen),
+            1, families)
+        log_breakdown("TRAIN BREAKDOWN one 'all' step", *out)
+        train.update(launches=launches, bwd_calls=list(bwd_rec.calls), step_ms=per_stage)
+        shutil.rmtree(folder, ignore_errors=True)
+
+    phase("train_path", train_path)
+
+    def bwd_kernel():
+        """K3 replayed on the cotangents of the last train step."""
+        calls = train["bwd_calls"]
+        require(len(calls) == 2, f"{len(calls)} recorded backward calls, want 2")
+        err, abs_err, ms, plain_ms, lib_ms, nbytes, ops = 0.0, 0.0, 0.0, 0.0, 0.0, 0, 0
+        for args, kwargs in calls:
+            g, shapes, boxes, bidx, lidx, crop = args[:6]
+            got = roi_ops.roi_align_bwd(g, shapes, boxes, bidx, lidx, crop)
+            again = roi_ops.roi_align_bwd(g, shapes, boxes, bidx, lidx, crop)
+            want = roi_ops.multilevel_gather_bwd_plain(g, shapes, boxes, bidx, lidx, crop)
+            torch.cuda.synchronize()
+            top = max(float(w.abs().max()) for w in want)
+            a_err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+            e = a_err / max(top, 1e-30)
+            abs_err = max(abs_err, a_err)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            require(same, "two launches of the RoIAlign backward differ")
+            err = max(err, e)
+            k_ms = cuda_ms(torch, lambda: roi_ops.roi_align_bwd(g, shapes, boxes, bidx, lidx, crop), 20)
+            p_ms = cuda_ms(torch, lambda: roi_ops.multilevel_gather_bwd_plain(
+                g, shapes, boxes, bidx, lidx, crop), 3)
+            # yardstick: grid_sample's backward into P2 for every box of the call
+            b, h2, w2, c = shapes[0]
+            p2 = torch.zeros((b, c, h2, w2), device="cuda", requires_grad=True)
+            n, (ch, cw) = boxes.shape[0], crop
+            grid = box_grid(torch, boxes, crop, b)
+            with torch.enable_grad():
+                sampled = torch.nn.functional.grid_sample(
+                    p2, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+            gout = g.reshape(b, n // b * ch, cw, c).permute(0, 3, 1, 2).contiguous()
+            l_ms = cuda_ms(torch, lambda: torch.autograd.grad(sampled, p2, gout, retain_graph=True), 20)
+            # least bytes: g read once, the boxes and indices, every level's
+            # gradient written once; operations: per valid sample and channel
+            # a = g ly, g - a, and each tap's weight and add
+            _, _, _, valid = roi_ops.tap_rows(shapes, boxes, bidx, lidx, crop)
+            call_bytes = g.numel() * 4 + n * 24 + sum(4 * math.prod(s) for s in shapes)
+            nbytes += call_bytes
+            ops += int(valid.sum()) * c * ROI_BWD_OPS_PER_VALUE
+            ms, plain_ms, lib_ms = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
+            log(f"  roi_align_bwd n={n} crop={crop}: rel err {e:.3g} (max |grad| {top:.4g}), "
+                f"two launches bit-equal {same}, {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                f"grid_sample backward {l_ms:.4f} ms, {call_bytes} bytes")
+        if err > 1e-5:
+            raise AssertionError(f"RoIAlign backward differs from its plain version by {err}")
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = ops / H100_FP32_OPS_PER_S * 1e3
+        log(f"  roi_align_bwd bound: {nbytes} bytes -> {t_bytes:.6f} ms at "
+            f"{H100_BYTES_PER_S:.3g} B/s; {ops} fp32 ops -> {t_ops:.6f} ms")
+        kernels.append({
+            "name": "roi_align_bwd", "route": "cuda",
+            "source": "feature_intertwiner_tpu_torch/csrc/roi_align_bwd.cu",
+            "replaces": "feature_intertwiner_tpu/ops/roi_align_window_bwd.py:106",
+            "launches": train["launches"]["roi_align_bwd"], "max_abs_err": abs_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms})
+
+    if "train_path" not in failures:
+        phase("kernel_roi_align_bwd", bwd_kernel)
+    else:
+        failures.append("kernel_roi_align_bwd (train path failed)")
 
     # 6. card against CPU on a small model ------------------------------------
     def reference():
-        small = build_config("smoke_small", "inference", opts=list(FLAGSHIP_OVERRIDES) + [
+        small_opts = list(FLAGSHIP_OVERRIDES) + [
             "MODEL.BACKBONE", "resnet50", "DATASET.NUM_CLASSES", "8",
             "DATA.IMAGE_MIN_DIM", "96", "DATA.IMAGE_MAX_DIM", "128",
             "RPN.ANCHOR_SCALES", "(8, 16, 32, 64, 128)", "RPN.PRE_NMS_LIMIT", "200",
-            "RPN.POST_NMS_ROIS_INFERENCE", "48", "TEST.DET_MAX_INSTANCES", "8"])
+            "RPN.POST_NMS_ROIS_INFERENCE", "48", "TEST.DET_MAX_INSTANCES", "8",
+            "ROIS.TRAIN_ROIS_PER_IMAGE", "24"]
+        small = build_config("smoke_small", "inference", opts=small_opts)
         gpu = seeded_model(build_model, small, seed=3)
         cpu = seeded_model(build_model, small, seed=3, device="cpu")
         imgs = [im[::4, ::4].copy() for im in images]
@@ -503,6 +790,81 @@ def main() -> int:
                 "the card's pyramid or detections differ from the CPU's")
         require(box_err <= 1.0 and score_err <= 1e-4 and mask_err <= 1e-4,
                 "the card's boxes, scores or masks differ from the CPU's")
+
+        # one train step of a small model, card against CPU: the same
+        # weights, batch and uniform draws; the CPU is fed the card's
+        # proposals, so that a near-tie in the proposal NMS cannot change
+        # which RoIs the draws sample. RoI levels as at 1024² (base 224 over
+        # a 128² image is 28; 56 here) and the FPN tempered as in the train
+        # path, so that the GT, three of the card's largest proposals per
+        # image, gives positives on level 3 and a meta loss. The biases are
+        # drawn non-zero (N(0, 0.005)), as a trained model's are: a bias
+        # that starts at zero is after one step its update alone, a sum of
+        # small gradients whose last digits the card and the CPU sum in
+        # another order, and would be held to its own rounding
+        import numpy as np
+        from feature_intertwiner_tpu_torch.train.optim import set_trainable
+        from feature_intertwiner_tpu_torch.train.step import create_train_state, train_step
+
+        tsmall = build_config("smoke_small", "train", opts=list(small_opts) + [
+            "ROIS.ASSIGN_ANCHOR_BASE", "56.0"])
+        models = {}
+        for dev in ("cuda", "cpu"):
+            model = seeded_model(build_model, tsmall, seed=3, device=dev)
+            biases = torch.Generator().manual_seed(4)
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    if name.endswith("bias"):
+                        p.copy_(torch.randn(p.shape, generator=biases) * 0.005)
+            models[dev] = temper_fpn(model)
+        rng = np.random.RandomState(5)
+        b, gt, size = 2, 5, 128
+        images_np = rng.randn(b, size, size, 3) * 40
+        with torch.no_grad():
+            props = models["cuda"].first_stage(
+                torch.as_tensor(images_np, dtype=torch.float32, device="cuda"))[3].cpu().numpy()
+        area = (props[..., 2] - props[..., 0]) * (props[..., 3] - props[..., 1])
+        boxes_np = np.zeros((b, gt, 4))
+        for i in range(b):
+            boxes_np[i, :3] = props[i, np.argsort(-area[i])[:3]] * size
+        y1x1 = rng.uniform(4, 64, (b, 2, 2))
+        boxes_np[:, 3:] = np.concatenate([y1x1, y1x1 + rng.uniform(16, 60, (b, 2, 2))], -1)
+        batch_np = {"images": images_np, "gt_class_ids": rng.randint(1, 8, (b, gt)),
+                    "gt_boxes": boxes_np, "gt_masks": rng.rand(b, gt, 14, 14) > 0.5}
+        dtypes = {"gt_class_ids": torch.int32}
+        n_anchors = int(models["cuda"].anchors.shape[0])
+        draws_np = {"rpn": rng.rand(b, 2, n_anchors), "det": rng.rand(b, 2, 48)}
+        runs = {}
+        for dev, model in models.items():
+            st = create_train_state(tsmall, model)
+            set_trainable(model, "all")
+            batch = {k: torch.as_tensor(v).to(dev, dtypes.get(k, torch.float32))
+                     for k, v in batch_np.items()}
+            draws = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                     for k, v in draws_np.items()}
+            if dev == "cuda":
+                propose = model._propose
+                model._propose = lambda *a: runs.setdefault("proposals", propose(*a))
+            else:
+                model._propose = lambda *a: runs["proposals"].cpu()
+            metrics = train_step(st, tsmall, batch, 0.01, 1.0, draws=draws)
+            runs[dev] = ({k: float(v) for k, v in metrics.items()},
+                         {n: p.detach().cpu() for n, p in model.named_parameters()},
+                         st.buffer.cpu(), st.buffer_cnt.cpu())
+        (mg, pg, bg, cg), (mc, pc, bc, cc) = runs["cuda"], runs["cpu"]
+        loss_rel = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc
+                       if k.endswith("_loss"))
+        param_rel, worst = max((float((pg[n] - pc[n]).abs().max()
+                                      / pc[n].abs().max().clamp_min(1e-12)), n) for n in pc)
+        buf_err = max(float((bg - bc).abs().max()), float((cg - cc).abs().max()))
+        log(f"REFERENCE train step card vs CPU: losses rel err {loss_rel:.3g} "
+            f"(total {mg['total_loss']:.5f} / {mc['total_loss']:.5f}, positives "
+            f"{mg['positive_rois']:.0f}, meta {mg['meta_loss']:.4g}), parameters rel err "
+            f"{param_rel:.3g} ({worst}), buffer err {buf_err:.3g}")
+        require(loss_rel <= 1e-4 and param_rel <= 1e-5 and buf_err <= 1e-4,
+                "the card's train step differs from the CPU's")
+        require(mg["positive_rois"] > 0 and mg["meta_loss"] > 0,
+                "the reference step had no positive RoI or no meta loss")
 
     phase("reference", reference)
 

@@ -19,7 +19,8 @@
 // the division by (crop-1) is a multiply by its float32 reciprocal (passed
 // in as inv_h/inv_w), and `i*step + c0*(H-1)` and the three lerps are fused
 // multiply-adds (explicit __fmaf_rn; the file is compiled with -fmad=false,
-// so nothing else is contracted). The plain version rounds the same way.
+// so nothing else is contracted). The sampling lives in roi_align_taps.cuh,
+// shared with the backward. The plain version rounds the same way.
 //
 // Design: one block per (box, output row); the threads run over channels,
 // so each tap read is one coalesced row of C floats (1 KB at C = 256).
@@ -30,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "roi_align_taps.cuh"
+
 namespace {
 
 constexpr int kMaxLevels = 4;
@@ -39,37 +42,6 @@ struct Levels {
   int height[kMaxLevels];
   int width[kMaxLevels];
 };
-
-struct Taps {
-  int lo;
-  int hi;
-  float lerp;
-  bool valid;
-};
-
-__device__ __forceinline__ float sample_position(float c0, float c1, int crop,
-                                                 float inv, int i, float dim) {
-  const float dm1 = dim - 1.0f;
-  if (crop > 1) {
-    const float step = __fmul_rn(__fmul_rn(c1 - c0, dm1), inv);
-    return __fmaf_rn((float)i, step, __fmul_rn(c0, dm1));
-  }
-  return __fmul_rn(__fmul_rn(0.5f, c0 + c1), dm1);
-}
-
-__device__ __forceinline__ Taps corner_taps(float pos, float dim) {
-  const float dm1 = dim - 1.0f;
-  Taps t;
-  t.valid = (pos >= 0.0f) && (pos <= dm1);
-  const float lo = floorf(pos);
-  const float hi = ceilf(pos);
-  t.lerp = pos - lo;
-  // Clamped in float first, so that a position far outside the map never
-  // converts out of int range. In-range taps are unchanged by the clamp.
-  t.lo = (int)fminf(fmaxf(lo, 0.0f), dm1);
-  t.hi = (int)fminf(fmaxf(hi, 0.0f), dm1);
-  return t;
-}
 
 __global__ void roi_align_fwd_kernel(Levels levels, int num_levels, int batch,
                                      int channels,

@@ -6,11 +6,9 @@ calls. They run on the card (``"cuda"``) unless the caller asks for
 
 The host steps around the model are ports of the JAX package's
 ``train/workflow.py::mold_inputs``/``unmold_detections`` and
-``data/transforms.py::resize_image``/``unmold_mask``. The JAX package
-resizes with OpenCV's bilinear ``cv2.resize``; the port resizes with
-``torch.nn.functional.interpolate(mode="bilinear", align_corners=False)``,
-the same half-pixel bilinear rule (a uint8 image differs by at most one grey
-level, from OpenCV's fixed-point arithmetic).
+``data/transforms.py::resize_image``/``unmold_mask``, resizing as the
+port's ``data/transforms.py`` does (torch's half-pixel bilinear in place of
+OpenCV's).
 """
 
 from __future__ import annotations
@@ -21,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .data.transforms import bilinear, resize_scale
 from .models.common import init_weights
 from .models.detector import InterNet
 
@@ -49,24 +48,6 @@ def build_model(cfg, device=None, seed: Optional[int] = None) -> InterNet:
     return model.to(device=dev, memory_format=torch.channels_last).eval()
 
 
-def _resize_scale(h: int, w: int, min_dim, max_dim) -> float:
-    scale = 1.0
-    if min_dim:
-        scale = max(1.0, min_dim / min(h, w))
-    if max_dim and round(max(h, w) * scale) > max_dim:
-        scale = max_dim / max(h, w)
-    return scale
-
-
-def _bilinear(image: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """[H, W] or [H, W, C] -> resized to ``size`` (h, w), half-pixel
-    bilinear, float32."""
-    x = image.float()
-    x = x[None, None] if x.dim() == 2 else x.permute(2, 0, 1)[None]
-    x = F.interpolate(x, size=size, mode="bilinear", align_corners=False)[0]
-    return x[0] if image.dim() == 2 else x.permute(1, 2, 0)
-
-
 def mold_inputs(images: Sequence[np.ndarray], cfg, device=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Resize (aspect kept), centre-pad to IMAGE_MAX_DIM², subtract the mean
@@ -80,9 +61,9 @@ def mold_inputs(images: Sequence[np.ndarray], cfg, device=None
     for img in images:
         h, w = img.shape[:2]
         t = torch.from_numpy(np.ascontiguousarray(img)).to(device)
-        scale = _resize_scale(h, w, cfg.DATA.IMAGE_MIN_DIM, s)
+        scale = resize_scale(h, w, cfg.DATA.IMAGE_MIN_DIM, s)
         if scale != 1.0:
-            r = _bilinear(t, (round(h * scale), round(w * scale)))
+            r = bilinear(t, (round(h * scale), round(w * scale)))
             # OpenCV returns the input's type: round back to uint8 pixels
             t = r.round().clamp(0, 255).to(t.dtype) if img.dtype == np.uint8 else r
         h2, w2 = t.shape[:2]
@@ -102,7 +83,7 @@ def unmold_mask(mask: np.ndarray, bbox, image_shape) -> np.ndarray:
     """A 28² float mask and its pixel box -> full-size binary uint8 mask."""
     y1, x1, y2, x2 = [int(v) for v in bbox]
     h, w = max(y2 - y1, 1), max(x2 - x1, 1)
-    m = _bilinear(torch.from_numpy(np.ascontiguousarray(mask, np.float32)), (h, w))
+    m = bilinear(torch.from_numpy(np.ascontiguousarray(mask, np.float32)), (h, w))
     m = (m >= 0.5).to(torch.uint8).numpy()
     full = np.zeros(image_shape[:2], np.uint8)
     y2c, x2c = min(y1 + h, image_shape[0]), min(x1 + w, image_shape[1])

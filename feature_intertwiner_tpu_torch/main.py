@@ -1,0 +1,80 @@
+"""Command line of the port, with the flags of the JAX package's ``main.py``::
+
+    python -m feature_intertwiner_tpu_torch.main --phase train --synthetic_data \
+        [--config_name NAME] [--config_file cfg.yaml] [--debug 0|1] \
+        [--device cuda|cpu] [KEY.SUBKEY VALUE ...]
+
+``--phase train`` runs the three-stage schedule (heads, 4+, all; only 'all'
+with ``TRAIN.END2END``) with resume from the run's newest checkpoint, on the
+GPU unless ``--device cpu`` is given. Float32 throughout, TF32 off.
+
+What is not ported yet raises ``NotImplementedError``: the inference and
+visualize phases and the eval loop (``TRAIN.DO_VALIDATION``), which are
+slice S2 of the port, and COCO data on disk. ``--synthetic_data`` builds
+the JAX package's synthetic set (8 images) in memory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Optional, Sequence
+
+import torch
+
+from .config import build_config
+from .data import synthetic
+from .data.loader import DetectionDataset, Loader
+from .inference import build_model
+from .train.workflow import Trainer, train_model
+from .utils.logging import print_log
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="InterNet, PyTorch/CUDA port")
+    p.add_argument("--phase", default="train", choices=["train", "inference", "visualize"])
+    p.add_argument("--config_name", default=None)
+    p.add_argument("--config_file", default=None)
+    p.add_argument("--debug", type=int, default=0)
+    p.add_argument("--device_id", default="0", help="kept for parity with main.py")
+    p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    p.add_argument("--data_root", default=None,
+                   help="COCO data on disk (not ported yet; see --synthetic_data)")
+    p.add_argument("--synthetic_data", action="store_true",
+                   help="build a synthetic dataset in memory")
+    p.add_argument("opts", nargs=argparse.REMAINDER, help="KEY.SUBKEY VALUE overrides")
+    return p.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Trainer:
+    args = parse_args(argv)
+    if args.phase != "train":
+        raise NotImplementedError(
+            f"--phase {args.phase}: the eval loop is slice S2 of the port, not ported yet")
+    if not args.synthetic_data:
+        raise NotImplementedError(
+            "COCO data on disk is not ported yet (slice S2); pass --synthetic_data")
+    opts = ["CTRL.QUICK_VERIFY", "True"] + list(args.opts or [])
+    cfg = build_config(config_name=args.config_name or "default", phase=args.phase,
+                       config_file=args.config_file, opts=opts, debug=bool(args.debug),
+                       make_dirs=True)
+    cfg.MISC.LOG_FILE = os.path.join(cfg.MISC.RESULT_FOLDER, "log.txt")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    dataset = synthetic.generate(num_images=8)
+    # the synthetic set has fewer classes than COCO's 81
+    cfg.DATASET.NUM_CLASSES = dataset.num_classes
+    model = build_model(cfg, device=args.device, seed=cfg.MISC.SEED)
+    print_log(f"device: {next(model.parameters()).device}", cfg.MISC.LOG_FILE, init=True)
+    cfg.display(lambda msg: print_log(msg, cfg.MISC.LOG_FILE, quiet_terminal=True))
+    loader = Loader(DetectionDataset(dataset, cfg, augment=True, seed=cfg.MISC.SEED),
+                    batch_size=cfg.TRAIN.BATCH_SIZE, shuffle=True, seed=cfg.MISC.SEED)
+    trainer = Trainer(model, cfg).resume()
+    for stage in ("all",) if cfg.TRAIN.END2END else ("heads", "4+", "all"):
+        train_model(trainer, loader, stage)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

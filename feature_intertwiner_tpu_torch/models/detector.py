@@ -1,17 +1,25 @@
-"""InterNet at inference: the two-stage detector with the Feature Intertwiner.
+"""InterNet: the two-stage detector with the Feature Intertwiner.
 
 Port of ``feature_intertwiner_tpu/models/detector.py``
-(``InterNet.from_config`` and ``forward_inference``): ResNet-FPN backbone,
-RPN, proposal layer, Dev, classifier, detection layer, then the mask pass
-on the detections. The top-level module names follow the reference
-checkpoints: ``fpn`` (with the backbone stages inside), ``rpn``,
-``dev_roi``, ``classifier`` and ``mask``.
+(``InterNet.from_config``, ``forward_inference`` and ``forward_train``):
+ResNet-FPN backbone, RPN, proposal layer, Dev, classifier, detection layer,
+then the mask pass on the detections; in training, the RPN and second-stage
+targets and the five losses in place of the detection layer.
+
+Training follows the JAX package's ``strict_quirks`` (SURVEY §3.5 #1): it
+proposes ``POST_NMS_ROIS_INFERENCE`` boxes (``POST_NMS_ROIS_TRAINING`` with
+``MODEL.STRICT_QUIRKS`` off) and BN stays in eval mode, its running
+statistics frozen; the caller keeps the model in ``eval()``.
+
+The top-level module names follow the reference checkpoints: ``fpn`` (with
+the backbone stages inside), ``rpn``, ``dev_roi``, ``classifier`` and
+``mask``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -19,6 +27,8 @@ from torch import nn
 from ..ops.anchors import generate_pyramid_anchors
 from ..ops.detection import detection_layer
 from ..ops.proposals import proposal_layer
+from ..ops.targets import detection_targets, rpn_targets
+from ..train import losses as L
 from .fpn import FPN
 from .heads import BoxHead, MaskHead
 from .intertwiner import Dev
@@ -58,6 +68,18 @@ class InterNet(nn.Module):
         dev_assign_all_scale: bool = False,
         dev_feat_pool_size: int = 14,
         cls_merge_feat: bool = False,
+        post_nms_train: int = 2000,
+        train_anchors_per_image: int = 256,
+        rpn_pos_thresh: float = 0.7,
+        rpn_neg_thresh: float = 0.3,
+        rois_per_image: int = 200,
+        positive_ratio: float = 0.33,
+        use_mini_mask: bool = True,
+        strict_quirks: bool = True,
+        dev_loss_choice: str = "l1",
+        dev_baseline: bool = False,
+        dev_big_supervise: bool = False,
+        dev_big_feat_detach: bool = True,
     ):
         super().__init__()
         if dev_switch and cls_merge_feat and dev_structure == "beta":
@@ -75,6 +97,14 @@ class InterNet(nn.Module):
         self.det_max_instances = det_max_instances
         self.det_nms_threshold = det_nms_threshold
         self.det_min_confidence = det_min_confidence
+        self.post_nms_train = post_nms_train
+        self.train_anchors_per_image = train_anchors_per_image
+        self.rpn_pos_thresh = rpn_pos_thresh
+        self.rpn_neg_thresh = rpn_neg_thresh
+        self.rois_per_image = rois_per_image
+        self.positive_ratio = positive_ratio
+        self.use_mini_mask = use_mini_mask
+        self.strict_quirks = strict_quirks
 
         self.fpn = FPN(ResNet(backbone), fpn_channels)
         self.rpn = RPNHead(len(anchor_ratios), anchor_stride, fpn_channels)
@@ -87,7 +117,10 @@ class InterNet(nn.Module):
             multi_upsampler=dev_multi_upsampler,
             dis_upsampler=dev_dis_upsampler,
             assign_all_scale=dev_assign_all_scale,
-            feat_pool_size=dev_feat_pool_size)
+            feat_pool_size=dev_feat_pool_size,
+            num_classes=num_classes, loss_choice=dev_loss_choice,
+            baseline=dev_baseline, big_supervise=dev_big_supervise,
+            big_feat_detach=dev_big_feat_detach)
         self.classifier = BoxHead(num_classes, pool_size, fpn_channels)
         self.mask = MaskHead(num_classes, fpn_channels)
 
@@ -130,19 +163,33 @@ class InterNet(nn.Module):
             dev_assign_all_scale=cfg.DEV.ASSIGN_BOX_ON_ALL_SCALE,
             dev_feat_pool_size=cfg.DEV.FEAT_BRANCH_POOL_SIZE,
             cls_merge_feat=cfg.DEV.CLS_MERGE_FEAT,
+            post_nms_train=cfg.RPN.POST_NMS_ROIS_TRAINING,
+            train_anchors_per_image=cfg.RPN.TRAIN_ANCHORS_PER_IMAGE,
+            rpn_pos_thresh=cfg.RPN.TARGET_POS_THRES,
+            rpn_neg_thresh=cfg.RPN.TARGET_NEG_THRES,
+            rois_per_image=cfg.ROIS.TRAIN_ROIS_PER_IMAGE,
+            positive_ratio=cfg.ROIS.ROI_POSITIVE_RATIO,
+            use_mini_mask=cfg.MRCNN.USE_MINI_MASK,
+            strict_quirks=bool(cfg.MODEL.STRICT_QUIRKS),
+            dev_loss_choice=cfg.DEV.LOSS_CHOICE,
+            dev_baseline=cfg.DEV.BASELINE,
+            dev_big_supervise=cfg.DEV.BIG_SUPERVISE,
+            dev_big_feat_detach=cfg.DEV.BIG_FEAT_DETACH,
         )
+
+    def _propose(self, rpn_probs, rpn_deltas, count: int) -> torch.Tensor:
+        return proposal_layer(
+            rpn_probs.float(), rpn_deltas.float(), self.anchors, self.bbox_std,
+            (self.image_size, self.image_size),
+            pre_nms_limit=self.pre_nms_limit, proposal_count=count,
+            nms_threshold=self.rpn_nms_threshold)
 
     def first_stage(self, images: torch.Tensor) -> Tuple[List[torch.Tensor], ...]:
         """images [B, S, S, 3] NHWC -> (pyramid [P2..P6] NCHW, rpn_probs
         [B, A, 2], rpn_deltas [B, A, 4], proposals [B, R, 4] normalised)."""
         pyramid = self.fpn(images.permute(0, 3, 1, 2))
         _, rpn_probs, rpn_deltas = run_rpn_over_pyramid(self.rpn, pyramid)
-        proposals = proposal_layer(
-            rpn_probs.float(), rpn_deltas.float(), self.anchors, self.bbox_std,
-            (self.image_size, self.image_size),
-            pre_nms_limit=self.pre_nms_limit,
-            proposal_count=self.post_nms_inference,
-            nms_threshold=self.rpn_nms_threshold)
+        proposals = self._propose(rpn_probs, rpn_deltas, self.post_nms_inference)
         return pyramid, rpn_probs, rpn_deltas, proposals
 
     def second_stage(self, feats: List[torch.Tensor], proposals: torch.Tensor,
@@ -181,4 +228,57 @@ class InterNet(nn.Module):
         return self.second_stage(pyramid[:4], proposals, windows, with_masks)
 
     forward = forward_inference
+
+    def forward_train(self, images: torch.Tensor, gt_class_ids: torch.Tensor,
+                      gt_boxes: torch.Tensor, gt_masks: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      draws: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """images [B, S, S, 3] molded NHWC; gt_class_ids [B, G] (0 pad,
+        < 0 crowd); gt_boxes [B, G, 4] pixels; gt_masks [B, G, mh, mw]
+        (mini-masks or full).
+
+        The targets' random subsets come from ``generator``, or from
+        ``draws`` ({"rpn": [B, 2, A], "det": [B, 2, P]} uniform scores).
+        Returns the five losses, ``positive_rois`` (sampled positives in the
+        batch) and, with the intertwiner on, ``intertwiner`` (the Dev
+        statistics, see :meth:`Dev.forward_train`); the buffer update and
+        the meta loss are the train step's (``train/step.py``)."""
+        b = images.shape[0]
+        pyramid = self.fpn(images.permute(0, 3, 1, 2))
+        rpn_logits, rpn_probs, rpn_deltas = run_rpn_over_pyramid(self.rpn, pyramid)
+        count = self.post_nms_inference if self.strict_quirks else self.post_nms_train
+        draws = draws or {}
+        with torch.no_grad():
+            proposals = self._propose(rpn_probs, rpn_deltas, count)
+            rpn_t = rpn_targets(
+                self.anchors, gt_class_ids, gt_boxes, self.bbox_std,
+                self.train_anchors_per_image, self.rpn_pos_thresh,
+                self.rpn_neg_thresh, generator=generator, draws=draws.get("rpn"))
+            det_t = detection_targets(
+                proposals, gt_class_ids, gt_boxes / float(self.image_size),
+                gt_masks, self.bbox_std, self.rois_per_image,
+                self.positive_ratio, self.mask_shape, self.use_mini_mask,
+                generator=generator, draws=draws.get("det"))
+
+        pooled_cls, pooled_mask, stats = self.dev_roi.forward_train(
+            pyramid[:4], det_t.rois, det_t.class_ids, self.pool_size,
+            self.mask_pool_size)
+        logits, _, bbox, _ = self.classifier(pooled_cls)
+        masks = self.mask(pooled_mask)
+        r, k = self.rois_per_image, self.num_classes
+        mh, mw = self.mask_shape
+        out = {
+            "rpn_class_loss": L.rpn_class_loss(rpn_t.match, rpn_logits),
+            "rpn_bbox_loss": L.rpn_bbox_loss(rpn_t.deltas, rpn_t.match, rpn_deltas),
+            "mrcnn_class_loss": L.mrcnn_class_loss(det_t.class_ids, logits.reshape(b, r, k)),
+            "mrcnn_bbox_loss": L.mrcnn_bbox_loss(
+                det_t.deltas, det_t.class_ids, bbox.reshape(b, r, k, 4)),
+            "mrcnn_mask_loss": L.mrcnn_mask_loss(
+                det_t.masks, det_t.class_ids, masks.reshape(b, r, mh, mw, k)),
+            "positive_rois": det_t.pos_mask.sum(),
+        }
+        if stats is not None:
+            out["intertwiner"] = stats
+        return out
 

@@ -1,33 +1,66 @@
-"""Dev, the Feature Intertwiner RoI stage, at inference.
+"""Dev, the Feature Intertwiner RoI stage.
 
 Port of ``feature_intertwiner_tpu/models/intertwiner.py`` for the flagship
-inference path: ``structure beta``, RoIAlign pooling and ``UPSAMPLE_FAC``
-1.0. With the intertwiner on, one shared make-up block (3×3 conv, BN eps
-1e-5, ReLU) runs over P2 to P5 and every RoI pools from the upsampled map of
-its FPN level; with it off, RoIs pool from P2 to P5 directly. Both use the
-FPN equation-1 level.
+recipe: ``structure beta``, RoIAlign pooling and ``UPSAMPLE_FAC`` 1.0. With
+the intertwiner on, one shared make-up block (3×3 conv, BN eps 1e-5, ReLU)
+runs over P2 to P5 and every RoI pools from the upsampled map of its FPN
+level; with it off, RoIs pool from P2 to P5 directly. Both use the FPN
+equation-1 level.
 
 The JAX package runs the make-up block on each Dev call, once for the
 classifier pooling and once for the mask pooling; the port runs it once per
 forward (:meth:`Dev.pooling_maps`) and pools twice from the result. The
 numbers are the same.
 
-The critic (``feat_extract``) is ported with its weights. At inference it
-feeds only ``CLS_MERGE_FEAT``, which this slice does not port, so the
-inference path does not run it. Each variant outside the slice raises
-``NotImplementedError`` naming itself.
+In training (:meth:`Dev.forward_train`) the critic (``feat_extract``) turns
+every RoI's 14² pooling into a 1024-d vector (sigmoid for the L1/L2 meta
+loss, softmax for KL). Per meta level l in (2, 3, 4) the small set is the
+RoIs assigned to l, and the reliable ("big") set the RoIs of the levels
+above it, pooled 14² from the raw map P_l by a single-level
+``crop_and_resize`` and run through the critic; both are reduced to
+per-class means (:func:`class_mean`). A level without small RoIs has its big
+statistics zeroed. The big side is computed without gradient
+(``BIG_FEAT_DETACH``).
+
+At inference the critic feeds only ``CLS_MERGE_FEAT``, which the port does
+not have yet, so the inference path does not run it. Each variant outside
+the port raises ``NotImplementedError`` naming itself.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.roi_align import multilevel_crop_and_resize
+from ..ops.roi_align import (assign_fpn_level, crop_and_resize,
+                             multilevel_crop_and_resize)
 from .common import DEV_BN_EPS, batch_norm, same_padding
+
+META_LEVELS = (2, 3, 4)
+
+
+def class_mean(vecs: torch.Tensor, gts: torch.Tensor, mask: torch.Tensor,
+               num_classes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-class masked mean as one product: vecs [N, D], gts [N] int,
+    mask [N] bool -> (feat [D, K], cnt [1, K]); the background (class 0) is
+    left out and absent classes give zero columns."""
+    onehot = F.one_hot(gts.to(torch.int64), num_classes).to(vecs.dtype)
+    onehot = onehot * mask.to(vecs.dtype)[:, None]
+    onehot[:, 0] = 0.0
+    cnt = onehot.sum(0)
+    sums = vecs.T @ onehot
+    feat = torch.where(cnt[None, :] > 0, sums / cnt.clamp_min(1.0)[None, :],
+                       sums.new_zeros(()))
+    return feat, cnt[None, :]
+
+
+def big_mask(level_id: int, lvl: torch.Tensor) -> torch.Tensor:
+    """The reliable set of meta level ``level_id``: RoIs of levels 3-5 for
+    level 2, 4-5 for level 3, 5 for level 4."""
+    return (lvl > level_id) & (lvl <= 5)
 
 
 class UpsampleBlock(nn.Sequential):
@@ -86,6 +119,11 @@ class Dev(nn.Module):
         dis_upsampler: bool = False,
         assign_all_scale: bool = False,
         feat_pool_size: int = 14,
+        num_classes: int = 81,
+        loss_choice: str = "l1",
+        baseline: bool = False,
+        big_supervise: bool = False,
+        big_feat_detach: bool = True,
     ):
         super().__init__()
         if roi_method != "roi_align":
@@ -106,6 +144,12 @@ class Dev(nn.Module):
         self.use_dev = use_dev
         self.image_size = image_size
         self.assign_base = assign_base
+        self.feat_pool_size = feat_pool_size
+        self.num_classes = num_classes
+        self.loss_choice = loss_choice
+        self.baseline = baseline
+        self.big_supervise = big_supervise
+        self.big_feat_detach = big_feat_detach
 
     def pooling_maps(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """P2..P5 (NCHW) -> the maps RoIs pool from, as contiguous NHWC."""
@@ -122,3 +166,63 @@ class Dev(nn.Module):
         return multilevel_crop_and_resize(
             maps, flat, box_idx, (crop, crop), (self.image_size, self.image_size),
             assign_base=self.assign_base)
+
+    def last_op(self, x: torch.Tensor) -> torch.Tensor:
+        """The critic's last op for the meta loss."""
+        if self.loss_choice in ("l1", "l2"):
+            return torch.sigmoid(x)
+        if self.loss_choice == "kl":
+            return torch.softmax(x, dim=1)
+        raise NotImplementedError(f"DEV.LOSS_CHOICE {self.loss_choice}")
+
+    def forward_train(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                      roi_gt: torch.Tensor, pool_size: int = 7,
+                      mask_pool_size: int = 14
+                      ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+        """P2..P5 (NCHW), sampled rois [B, R, 4] normalised and their
+        classes [B, R] -> (pooled_cls [B·R, P, P, C], pooled_mask
+        [B·R, M, M, C], stats); the critic reads pooled_mask. With the
+        intertwiner on, stats holds
+        big_feat and small_feat [3, 1024, K], big_cnt and small_cnt
+        [3, 1, K], big_loss [3] (zeros), small_out [B·R, 1024] (the critic's
+        vectors of meta-level RoIs, in RoI order) and small_gt [B·R]; it is
+        None with the intertwiner off."""
+        if self.use_dev:
+            for flag, name in ((self.baseline, "DEV.BASELINE"),
+                               (self.big_supervise, "DEV.BIG_SUPERVISE"),
+                               (not self.big_feat_detach, "DEV.BIG_FEAT_DETACH False")):
+                if flag:
+                    raise NotImplementedError(f"{name} in training")
+        b, r, _ = rois.shape
+        flat = rois.reshape(-1, 4)
+        box_idx = torch.arange(b, dtype=torch.int32, device=rois.device).repeat_interleave(r)
+        maps = self.pooling_maps(feats)
+        pooled_cls = self.pool(maps, rois, pool_size)
+        pooled_mask = self.pool(maps, rois, mask_pool_size)
+        if not self.use_dev:
+            return pooled_cls, pooled_mask, None
+
+        k = self.num_classes
+        lvl = assign_fpn_level(flat, (self.image_size, self.image_size), base=self.assign_base)
+        small_act = self.last_op(self.feat_extract(pooled_mask).float())
+        meta = (lvl >= META_LEVELS[0]) & (lvl <= META_LEVELS[-1])
+        flat_gt = roi_gt.reshape(-1).to(torch.int64)
+        stats = {key: [] for key in ("small_feat", "small_cnt", "big_feat", "big_cnt")}
+        for level_id in META_LEVELS:
+            small = lvl == level_id
+            feat, cnt = class_mean(small_act, flat_gt, small, k)
+            stats["small_feat"].append(feat)
+            stats["small_cnt"].append(cnt)
+            with torch.no_grad():
+                raw = feats[level_id - 2].permute(0, 2, 3, 1).contiguous()
+                pooled_big = crop_and_resize(raw, flat, box_idx, (self.feat_pool_size,) * 2)
+                big_act = self.last_op(self.feat_extract(pooled_big).float())
+                feat, cnt = class_mean(big_act, flat_gt, big_mask(level_id, lvl), k)
+                has_small = small.any().float()
+                stats["big_feat"].append(feat * has_small)
+                stats["big_cnt"].append(cnt * has_small)
+        out = {key: torch.stack(v) for key, v in stats.items()}
+        out["big_loss"] = small_act.new_zeros(len(META_LEVELS))
+        out["small_out"] = torch.where(meta[:, None], small_act, small_act.new_zeros(()))
+        out["small_gt"] = torch.where(meta, flat_gt, 0).float()
+        return pooled_cls, pooled_mask, out

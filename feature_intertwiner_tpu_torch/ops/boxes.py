@@ -1,8 +1,8 @@
 """Box math on ``(y1, x1, y2, x2)`` tensors.
 
-Port of ``feature_intertwiner_tpu/ops/boxes.py`` (``decode`` and ``clip``,
-the two the inference path uses), in the same operation order so that the
-two packages round alike.
+Port of ``feature_intertwiner_tpu/ops/boxes.py`` (``decode`` and ``clip``
+for inference, ``encode``, ``area`` and ``iou_matrix`` for the training
+targets), in the same operation order so that the two packages round alike.
 """
 
 from __future__ import annotations
@@ -50,3 +50,46 @@ def clip(boxes: torch.Tensor, window) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def encode(boxes: torch.Tensor, gt_boxes: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Deltas ``(dy, dx, log(dh), log(dw))`` that turn ``boxes`` into
+    ``gt_boxes`` ([..., 4] each). ``eps`` is added to every height and width
+    (the targets pass 1e-8, since zero-padded rows may appear)."""
+    height = boxes[..., 2] - boxes[..., 0] + eps
+    width = boxes[..., 3] - boxes[..., 1] + eps
+    center_y = boxes[..., 0] + 0.5 * height
+    center_x = boxes[..., 1] + 0.5 * width
+
+    gt_height = gt_boxes[..., 2] - gt_boxes[..., 0] + eps
+    gt_width = gt_boxes[..., 3] - gt_boxes[..., 1] + eps
+    gt_center_y = gt_boxes[..., 0] + 0.5 * gt_height
+    gt_center_x = gt_boxes[..., 1] + 0.5 * gt_width
+
+    dy = (gt_center_y - center_y) / height
+    dx = (gt_center_x - center_x) / width
+    dh = torch.log(gt_height / height)
+    dw = torch.log(gt_width / width)
+    return torch.stack([dy, dx, dh, dw], dim=-1)
+
+
+def area(boxes: torch.Tensor) -> torch.Tensor:
+    """[..., 4] -> [...] box areas (no +1 convention)."""
+    return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+
+
+IOU_EPS = 1e-19
+
+
+def iou_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """All-pairs IoU: [..., N, 4] and [..., M, 4] -> [..., N, M], with the
+    reference's ``union + 1e-19``."""
+    b1 = boxes1[..., :, None, :]
+    b2 = boxes2[..., None, :, :]
+    y1 = torch.maximum(b1[..., 0], b2[..., 0])
+    x1 = torch.maximum(b1[..., 1], b2[..., 1])
+    y2 = torch.minimum(b1[..., 2], b2[..., 2])
+    x2 = torch.minimum(b1[..., 3], b2[..., 3])
+    intersection = (x2 - x1).clamp_min(0.0) * (y2 - y1).clamp_min(0.0)
+    union = area(b1) + area(b2) - intersection
+    return intersection / (union + IOU_EPS)

@@ -3,9 +3,9 @@
 Each source under ``csrc/`` has a plain C interface and is compiled on first
 use into a shared library under ``build/torch_kernels/`` at the repository
 root, for ``sm_90a`` (Hopper). The library's name carries a digest of the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded. :func:`build` compiles several sources at once, one ``nvcc``
-process each.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and a stale library is never loaded. :func:`build`
+compiles several sources at once, one ``nvcc`` process each.
 
 Nothing here runs when the module is imported: the CPU tests import every
 module on a machine with no ``nvcc``.
@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
                  "-Xptxas=-v")
-SOURCES = ("roi_align_fwd", "nms")
+SOURCES = ("roi_align_fwd", "roi_align_bwd", "nms")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -58,9 +58,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(_COMMON_FLAGS).encode()).hexdigest()[:16]
+    """The library of one source; its name carries a digest of the source,
+    every header under ``csrc/`` and the flags."""
+    parts = [(CSRC_DIR / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh"))]
+    parts.append(" ".join(_COMMON_FLAGS).encode())
+    digest = hashlib.sha256(b"\0".join(parts)).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,12 +1,21 @@
-"""Multilevel FPN RoIAlign with TF ``crop_and_resize`` semantics.
+"""Multilevel FPN RoIAlign with TF ``crop_and_resize`` semantics, and its
+gradient.
 
 Port of ``feature_intertwiner_tpu/ops/roi_align.py`` (``assign_fpn_level``,
-``multilevel_crop_and_resize``) and of the Pallas window kernel that pools on
-the JAX package's main path
-(``ops/roi_align_window.py::_window_roi_kernel``). The pooling runs in the
-CUDA kernel ``csrc/roi_align_fwd.cu`` for tensors on the card, and in
-:func:`multilevel_gather_plain`, a torch copy of the JAX gather
-``_multilevel_gather``, for tensors on the CPU.
+``multilevel_crop_and_resize``, ``crop_and_resize``,
+``crop_and_resize_separable``) and of the two Pallas kernels of the JAX
+package's main path: the window forward
+(``ops/roi_align_window.py::_window_roi_kernel``) and its backward
+(``ops/roi_align_window_bwd.py::_bwd_kernel``, reached from the custom VJP
+``_hybrid_bwd``).
+
+:class:`RoIAlign` is the ``torch.autograd.Function`` of the pooling: its
+forward is :func:`roi_align_fwd` (the CUDA kernel ``csrc/roi_align_fwd.cu``
+on the card, :func:`multilevel_gather_plain`, a torch copy of the JAX gather
+``_multilevel_gather``, on the CPU) and its backward :func:`roi_align_bwd`
+(``csrc/roi_align_bwd.cu`` on the card, the scatter
+:func:`multilevel_gather_bwd_plain` on the CPU). Like ``_hybrid_bwd`` it
+gives no gradient to the boxes or indices.
 
 Sampling, for a box ``(y1, x1, y2, x2)`` on a map of height ``H``:
 ``pos_y(i) = y1 (H-1) + i (y2-y1)(H-1)/(crop-1)`` (the centre
@@ -24,7 +33,7 @@ normalised, crops ``[N, ch, cw, C]``.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -87,22 +96,23 @@ def _corner_weights(pos: torch.Tensor, dim: torch.Tensor):
 
 
 def tap_rows(
-    features: Sequence[torch.Tensor],
+    shapes: Sequence[Sequence[int]],
     boxes: torch.Tensor,
     box_indices: torch.Tensor,
     level_idx: torch.Tensor,
     crop_size: Tuple[int, int],
 ):
     """Where each sample reads: rows of the flattened pyramid
-    ``[B * sum(H_l W_l), C]`` (levels concatenated per image).
+    ``[B * sum(H_l W_l), C]`` (levels concatenated per image), for levels of
+    the NHWC ``shapes``.
 
     Returns ``(tl, tr, bl, br)`` row indices, each [N, ch, cw] int64, the
     lerps ``ly`` [N, ch] and ``lx`` [N, cw], and ``valid`` [N, ch, cw]."""
     ch, cw = crop_size
     dev = boxes.device
-    heights = torch.tensor([f.shape[1] for f in features], device=dev)
-    widths = torch.tensor([f.shape[2] for f in features], device=dev)
-    sizes = [f.shape[1] * f.shape[2] for f in features]
+    heights = torch.tensor([s[1] for s in shapes], device=dev)
+    widths = torch.tensor([s[2] for s in shapes], device=dev)
+    sizes = [s[1] * s[2] for s in shapes]
     offsets = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))], device=dev)
 
     level_idx = level_idx.to(torch.int64)
@@ -138,7 +148,7 @@ def multilevel_gather_plain(
     ch, cw = crop_size
     flat = torch.cat([f.reshape(b, -1, c) for f in features], dim=1).reshape(-1, c)
     (tl, tr, bl, br), ly, lx, valid = tap_rows(
-        features, boxes, box_indices, level_idx, crop_size)
+        [f.shape for f in features], boxes, box_indices, level_idx, crop_size)
 
     def gather(idx):
         return flat[idx.reshape(-1)].reshape(-1, ch, cw, c)
@@ -151,6 +161,24 @@ def multilevel_gather_plain(
     bot = _fma(br - bl, lxb, bl)
     out = _fma(bot - top, lyb, top)
     return torch.where(~valid[..., None], out.new_tensor(extrapolation_value), out)
+
+
+def _check_pooling_args(shapes, boxes, box_indices, level_idx):
+    """The arguments both RoIAlign wrappers share: 1 to 4 NHWC level shapes
+    with one batch and channel count, [N, 4] float32 boxes, [N] indices on
+    the boxes' device."""
+    if not 1 <= len(shapes) <= 4:
+        raise ValueError(f"1 to 4 pyramid levels, got {len(shapes)}")
+    b, c = shapes[0][0], shapes[0][-1]
+    if any(len(s) != 4 or s[0] != b or s[3] != c for s in shapes):
+        raise ValueError("levels must be [B, H, W, C] with one B and C")
+    if boxes.dim() != 2 or boxes.shape[1] != 4 or boxes.dtype != torch.float32:
+        raise ValueError("boxes must be a [N, 4] float32 tensor")
+    n = boxes.shape[0]
+    if box_indices.shape != (n,) or level_idx.shape != (n,):
+        raise ValueError("box_indices and level_idx must be [N]")
+    if box_indices.device != boxes.device or level_idx.device != boxes.device:
+        raise ValueError("box_indices and level_idx must be on the boxes' device")
 
 
 def roi_align_fwd(
@@ -173,22 +201,11 @@ def roi_align_fwd(
     :func:`multilevel_gather_plain`. Each launch adds one to
     ``cuda_build.launches["roi_align_fwd"]``."""
     features = list(features)
-    if not 1 <= len(features) <= 4:
-        raise ValueError(f"1 to 4 pyramid levels, got {len(features)}")
+    _check_pooling_args([tuple(f.shape) for f in features], boxes, box_indices, level_idx)
     b, _, _, c = features[0].shape
-    dev = boxes.device
-    for f in features:
-        if f.dim() != 4 or f.shape[0] != b or f.shape[3] != c:
-            raise ValueError("levels must be [B, H, W, C] with one B and C")
-        if f.dtype != torch.float32 or f.device != dev:
-            raise TypeError("levels must be float32 on the boxes' device")
-    if boxes.dim() != 2 or boxes.shape[1] != 4 or boxes.dtype != torch.float32:
-        raise ValueError("boxes must be a [N, 4] float32 tensor")
-    n = boxes.shape[0]
-    if box_indices.shape != (n,) or level_idx.shape != (n,):
-        raise ValueError("box_indices and level_idx must be [N]")
-    if box_indices.device != dev or level_idx.device != dev:
-        raise ValueError("box_indices and level_idx must be on the boxes' device")
+    n, dev = boxes.shape[0], boxes.device
+    if any(f.dtype != torch.float32 or f.device != dev for f in features):
+        raise TypeError("levels must be float32 on the boxes' device")
     ch, cw = (int(s) for s in crop_size)
     if dev.type == "cpu":
         return multilevel_gather_plain(features, boxes, box_indices, level_idx,
@@ -227,6 +244,148 @@ def roi_align_fwd(
     return out
 
 
+def multilevel_gather_bwd_plain(
+    g: torch.Tensor,
+    shapes: Sequence[Sequence[int]],
+    boxes: torch.Tensor,
+    box_indices: torch.Tensor,
+    level_idx: torch.Tensor,
+    crop_size: Tuple[int, int],
+) -> List[torch.Tensor]:
+    """Plain version of the RoIAlign backward kernel: the transpose of
+    :func:`multilevel_gather_plain`, an ``index_add_`` of the four weighted
+    taps of every valid sample into the flattened pyramid.
+
+    The weights are those XLA's transpose of the lerps gives:
+    ``a = g ly``, ``top = g - a``, ``bot = a``; ``tl += top - top lx``,
+    ``tr += top lx``, ``bl += bot - bot lx``, ``br += bot lx``. Returns one
+    float32 gradient ``[B, H_l, W_l, C]`` per level of ``shapes``."""
+    b, c = shapes[0][0], shapes[0][3]
+    (tl, tr, bl, br), ly, lx, valid = tap_rows(
+        shapes, boxes, box_indices, level_idx, crop_size)
+    g = torch.where(valid[..., None], g.float(), g.new_zeros((), dtype=torch.float32))
+    a = g * ly[:, :, None, None]
+    top = g - a
+    lxb = lx[:, None, :, None]
+    sizes = [s[1] * s[2] for s in shapes]
+    flat = torch.zeros((b * sum(sizes), c), dtype=torch.float32, device=g.device)
+    for rows, vals in ((tl, top - top * lxb), (tr, top * lxb),
+                       (bl, a - a * lxb), (br, a * lxb)):
+        flat.index_add_(0, rows.reshape(-1), vals.reshape(-1, c))
+    per_level = flat.reshape(b, sum(sizes), c).split(sizes, dim=1)
+    return [d.reshape(b, s[1], s[2], c).contiguous()
+            for d, s in zip(per_level, shapes)]
+
+
+def roi_align_bwd(
+    g: torch.Tensor,
+    shapes: Sequence[Sequence[int]],
+    boxes: torch.Tensor,
+    box_indices: torch.Tensor,
+    level_idx: torch.Tensor,
+    crop_size: Tuple[int, int],
+) -> List[torch.Tensor]:
+    """Multilevel RoIAlign backward: the gradient of :func:`roi_align_fwd`
+    with respect to each level, float32 ``[B, H_l, W_l, C]``.
+
+    g: the crops' cotangent [N, ch, cw, C] float32; shapes: the NHWC shapes
+    of the 1 to 4 levels; boxes, box_indices, level_idx as the forward got
+    them.
+
+    Kernel wrapper: on CUDA tensors it launches ``csrc/roi_align_bwd.cu``
+    (which replaces ``feature_intertwiner_tpu/ops/roi_align_window_bwd.py::
+    _bwd_kernel``); on CPU tensors it runs
+    :func:`multilevel_gather_bwd_plain`. Each launch adds one to
+    ``cuda_build.launches["roi_align_bwd"]``."""
+    shapes = [tuple(int(d) for d in s) for s in shapes]
+    _check_pooling_args(shapes, boxes, box_indices, level_idx)
+    b, c = shapes[0][0], shapes[0][3]
+    ch, cw = (int(v) for v in crop_size)
+    n = boxes.shape[0]
+    dev = boxes.device
+    if g.shape != (n, ch, cw, c) or g.dtype != torch.float32 or g.device != dev:
+        raise ValueError(f"g must be float32 [{n}, {ch}, {cw}, {c}] on the boxes' device")
+    if dev.type == "cpu":
+        return multilevel_gather_bwd_plain(g, shapes, boxes, box_indices,
+                                           level_idx, (ch, cw))
+    if dev.type != "cuda":
+        raise ValueError(f"roi_align_bwd runs on cuda or cpu, not {dev}")
+    if not g.is_contiguous():
+        raise ValueError("roi_align_bwd needs a contiguous cotangent")
+
+    boxes = boxes.contiguous()
+    bidx = box_indices.to(torch.int32).contiguous()
+    lidx = level_idx.to(torch.int32).contiguous()
+    outs = [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
+    lib = cuda_build.load("roi_align_bwd")
+    sizes = []
+    for name in ("roi_align_bwd_scratch_ints", "roi_align_bwd_scratch_floats"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        sizes.append(fn(n, ch, cw))
+    scratch_i = torch.empty(max(sizes[0], 4), dtype=torch.int32, device=dev)
+    scratch_f = torch.empty(max(sizes[1], 1), dtype=torch.float32, device=dev)
+    fn = lib.roi_align_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    num = len(shapes)
+    ptrs = (ctypes.c_void_p * num)(*[o.data_ptr() for o in outs])
+    hs = (ctypes.c_int * num)(*[s[1] for s in shapes])
+    ws = (ctypes.c_int * num)(*[s[2] for s in shapes])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ptrs, hs, ws, num, b, c, g.data_ptr(), boxes.data_ptr(),
+                 bidx.data_ptr(), lidx.data_ptr(), n, ch, cw, reciprocal(ch),
+                 reciprocal(cw), scratch_i.data_ptr(), scratch_f.data_ptr(),
+                 stream)
+    cuda_build.check(err, "roi_align_bwd")
+    cuda_build.launches["roi_align_bwd"] += 1
+    return outs
+
+
+class RoIAlign(torch.autograd.Function):
+    """Multilevel RoIAlign with a kernel on both sides: forward
+    :func:`roi_align_fwd`, backward :func:`roi_align_bwd` into every level.
+    The boxes and indices get no gradient. Call through :func:`roi_align`."""
+
+    @staticmethod
+    def forward(ctx, boxes, box_indices, level_idx, crop_size,
+                extrapolation_value, *features):
+        ctx.save_for_backward(boxes, box_indices, level_idx)
+        ctx.shapes = [tuple(f.shape) for f in features]
+        ctx.crop_size = crop_size
+        return roi_align_fwd(features, boxes, box_indices, level_idx,
+                             crop_size, extrapolation_value)
+
+    @staticmethod
+    def backward(ctx, g):
+        boxes, box_indices, level_idx = ctx.saved_tensors
+        grads = roi_align_bwd(g.contiguous(), ctx.shapes, boxes, box_indices,
+                              level_idx, ctx.crop_size)
+        return (None,) * 5 + tuple(grads)
+
+
+def roi_align(
+    features: Sequence[torch.Tensor],
+    boxes: torch.Tensor,
+    box_indices: torch.Tensor,
+    level_idx: torch.Tensor,
+    crop_size: Tuple[int, int],
+    extrapolation_value: float = 0.0,
+) -> torch.Tensor:
+    """Differentiable multilevel RoIAlign: [N, ch, cw, C] float32 crops of
+    the NHWC ``features`` (see :func:`roi_align_fwd`)."""
+    crop = tuple(int(v) for v in crop_size)
+    return RoIAlign.apply(boxes, box_indices, level_idx, crop,
+                          float(extrapolation_value), *features)
+
+
 def multilevel_crop_and_resize(
     features: Sequence[torch.Tensor],
     boxes: torch.Tensor,
@@ -243,5 +402,58 @@ def multilevel_crop_and_resize(
     FPN equation-1 assignment is used. Returns [N, ch, cw, C]."""
     if level_idx is None:
         level_idx = assign_fpn_level(boxes, image_shape, base=assign_base) - 2
-    return roi_align_fwd(features, boxes, box_indices, level_idx, crop_size,
-                         extrapolation_value)
+    return roi_align(features, boxes, box_indices, level_idx, crop_size,
+                     extrapolation_value)
+
+
+def crop_and_resize(
+    image: torch.Tensor,
+    boxes: torch.Tensor,
+    box_indices: torch.Tensor,
+    crop_size: Tuple[int, int],
+    extrapolation_value: float = 0.0,
+) -> torch.Tensor:
+    """TF ``crop_and_resize`` of one NHWC map: [N, ch, cw, C]. A one-level
+    call of :func:`roi_align`, so the same two kernels run it. The JAX
+    single-level version writes its lerps without fused multiply-adds, so
+    the two agree within float32 rounding, not bit for bit."""
+    level_idx = torch.zeros_like(box_indices, dtype=torch.int32)
+    return roi_align([image], boxes, box_indices, level_idx, crop_size,
+                     extrapolation_value)
+
+
+def _interp_matrix(c0: torch.Tensor, c1: torch.Tensor, crop: int, dim: int) -> torch.Tensor:
+    """[N] starts and ends -> [N, crop, dim] two-tap interpolation rows,
+    zero for samples outside ``[0, dim-1]`` (JAX ``_interp_matrix``)."""
+    d = float(dim)
+    samples = torch.arange(crop, dtype=torch.float32, device=c0.device)
+    if crop > 1:
+        step = (c1 - c0) * (d - 1.0) / (crop - 1)
+        pos = (c0 * (d - 1.0))[:, None] + samples[None, :] * step[:, None]
+    else:
+        pos = (0.5 * (c0 + c1) * (d - 1.0))[:, None] + samples[None, :] * 0.0
+    valid = (pos >= 0.0) & (pos <= d - 1.0)
+    lo = torch.floor(pos)
+    frac = pos - lo
+    lo_i = lo.clamp(0, dim - 1).to(torch.int64)
+    hi_i = torch.ceil(pos).clamp(0, dim - 1).to(torch.int64)
+    cols = torch.arange(dim, device=c0.device)
+    mat = ((cols == lo_i[..., None]).float() * (1.0 - frac)[..., None]
+           + (cols == hi_i[..., None]).float() * frac[..., None])
+    return torch.where(valid[..., None], mat, mat.new_zeros(()))
+
+
+def crop_and_resize_separable(
+    images: torch.Tensor,
+    boxes: torch.Tensor,
+    crop_size: Tuple[int, int],
+) -> torch.Tensor:
+    """``crop_and_resize`` of one source per box, as two interpolation
+    products ``Wy @ img @ Wxᵀ``: images [N, H, W, C], boxes [N, 4]
+    normalised -> [N, ch, cw, C], zero outside the source. The JAX package
+    computes it outside any kernel; the mask targets use it."""
+    _, h, w, _ = images.shape
+    ch, cw = crop_size
+    wy = _interp_matrix(boxes[:, 0], boxes[:, 2], ch, h)
+    wx = _interp_matrix(boxes[:, 1], boxes[:, 3], cw, w)
+    return torch.einsum("niwc,njw->nijc", torch.einsum("nih,nhwc->niwc", wy, images), wx)

@@ -1,0 +1,199 @@
+"""The training step: forward, the intertwiner buffer and meta loss, the
+update.
+
+Port of ``feature_intertwiner_tpu/train/step.py``. The class buffer of
+big-object features is explicit state in :class:`TrainState`, beside the
+model and the optimizer, and is checkpointed with them.
+
+Loss assembly, as there: ``sum(five losses) + meta_gate · LOSS_FAC · meta
++ BIG_LOSS_FAC · mean(big) (+ FPN OT, not ported)``. The meta loss is
+clamped at 0 when negative; ``meta_gate`` (0 before
+``EFFECT_AFER_EP_PERCENT`` of epoch 1) gates its gradient, not the buffer
+update; a step with no small-RoI statistics computes no meta loss and
+leaves the buffer as it was. Frozen parameters have no gradient (see
+``train/optim.py``); every trainable one gets one, zero where autograd
+gave none, so that SGD decays and moves it as the JAX step does. The
+gradients are clipped to their global norm, and SGD updates in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .optim import clip_global_norm, make_optimizer
+
+EPS = 1e-20
+LOSS_KEYS = ("rpn_class_loss", "rpn_bbox_loss", "mrcnn_class_loss",
+             "mrcnn_bbox_loss", "mrcnn_mask_loss")
+
+
+def init_buffer(buffer_size: int, num_classes: int, feat_dim: int = 1024,
+                device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A zero buffer [S, D, K] and its counts [S, 1, K]."""
+    return (torch.zeros((buffer_size, feat_dim, num_classes), device=device),
+            torch.zeros((buffer_size, 1, num_classes), device=device))
+
+
+def _merge_stats(feat: torch.Tensor, cnt: torch.Tensor):
+    """[S, D, K] statistics and [S, 1, K] counts over the meta levels ->
+    their count-weighted mean [D, K] and summed count [1, K]."""
+    wsum = (feat * cnt).sum(0)
+    csum = cnt.sum(0)
+    return wsum / (csum + EPS), csum
+
+
+def intertwiner_meta(
+    cfg_dev: Dict[str, object],
+    buffer: torch.Tensor,
+    buffer_cnt: torch.Tensor,
+    stats: Dict[str, torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The buffer update and the meta loss: (loss, new buffer, new counts).
+
+    ``cfg_dev``: buffer_size, loss_choice ('l1' | 'l2' | 'kl') and
+    inst_loss. ``stats``: the Dev statistics (``Dev.forward_train``).
+    ``BUFFER_SIZE`` 1 keeps the running mean of every step's big
+    statistics; a larger buffer is a FIFO of the last steps."""
+    buffer_size = cfg_dev["buffer_size"]
+    loss_choice = cfg_dev["loss_choice"]
+    big_merged, big_csum = _merge_stats(stats["big_feat"], stats["big_cnt"])
+    has_small = (stats["small_feat"].sum() != 0).float()
+
+    if buffer_size == 1:
+        feat_sum = buffer * buffer_cnt + big_merged[None] * big_csum[None]
+        new_cnt = buffer_cnt + big_csum[None]
+        new_buffer = feat_sum / (new_cnt + EPS)
+        final_big = new_buffer[0]
+        final_big_cnt = new_cnt[0]
+    else:
+        new_buffer = torch.cat([buffer[1:], big_merged[None]], dim=0)
+        new_cnt = torch.cat([buffer_cnt[1:], big_csum[None]], dim=0)
+        final_big = (new_buffer * new_cnt).sum(0) / (new_cnt.sum(0) + EPS)
+        final_big_cnt = new_cnt.sum(0)
+
+    # the buffer stays as it was when no small statistics came this step
+    new_buffer = has_small * new_buffer + (1 - has_small) * buffer
+    new_cnt = has_small * new_cnt + (1 - has_small) * buffer_cnt
+
+    big_side = final_big.detach().T                                  # [K, D]
+    if cfg_dev["inst_loss"]:
+        # every small RoI of a class the buffer holds, against its class row
+        small_gt = stats["small_gt"].to(torch.int64)
+        in_buffer = final_big_cnt[0][small_gt] > 0
+        w = ((small_gt > 0) & in_buffer).float()
+        big_rows = big_side[small_gt]
+        small_rows = stats["small_out"]
+    else:
+        small_merged, small_csum = _merge_stats(stats["small_feat"], stats["small_cnt"])
+        small_csum = small_csum.clone()
+        small_csum[0, 0] = 0.0                                       # no background
+        w = ((small_csum[0] > 0) & (final_big_cnt[0] > 0)).float()
+        small_rows = small_merged.T
+        big_rows = big_side
+
+    wm = w[:, None]
+    denom = (wm.sum() * small_rows.shape[1]).clamp_min(1.0)
+    if loss_choice == "l2":
+        loss = (((small_rows - big_rows) ** 2) * wm).sum() / denom
+    elif loss_choice == "l1":
+        loss = ((small_rows - big_rows).abs() * wm).sum() / denom
+    elif loss_choice == "kl":
+        kl = big_rows * (torch.log(big_rows + EPS) - torch.log(small_rows + EPS))
+        loss = (kl * wm).sum() / denom
+    else:
+        raise NotImplementedError(f"DEV.LOSS_CHOICE {loss_choice}")
+    loss = loss * has_small
+    loss = torch.where(loss < 0, loss.new_zeros(()), loss)
+    return loss, new_buffer, new_cnt
+
+
+@dataclass
+class TrainState:
+    """What a training run carries from step to step."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    buffer: torch.Tensor       # [BUFFER_SIZE, 1024, K]
+    buffer_cnt: torch.Tensor   # [BUFFER_SIZE, 1, K]
+    step: int = 0
+
+
+def create_train_state(cfg, model: torch.nn.Module) -> TrainState:
+    """Optimizer and a zero buffer for ``model`` (on its device)."""
+    if cfg.TRAIN.FPN_OT_LOSS:
+        raise NotImplementedError("TRAIN.FPN_OT_LOSS")
+    if cfg.DEV.DIS_REG_LOSS:
+        raise NotImplementedError("DEV.DIS_REG_LOSS")
+    device = next(model.parameters()).device
+    buf, cnt = init_buffer(cfg.DEV.BUFFER_SIZE if cfg.DEV.SWITCH else 1,
+                           cfg.DATASET.NUM_CLASSES, device=device)
+    return TrainState(model, make_optimizer(cfg, model), buf, cnt)
+
+
+def load_trainer_state(state: TrainState, payload: Dict[str, object]) -> None:
+    """Load ``utils/convert_weights.py::from_jax_train_state``'s output (or
+    a checkpoint's equivalent parts) into ``state``: weights, momentum,
+    buffer and step."""
+    model = state.model
+    device = next(model.parameters()).device
+    model.load_state_dict(payload["model"], strict=True)
+    for name, p in model.named_parameters():
+        state.optimizer.state[p]["momentum_buffer"] = (
+            payload["momentum"][name].to(device=device, dtype=p.dtype).clone())
+    state.buffer = payload["buffer"].to(device).clone()
+    state.buffer_cnt = payload["buffer_cnt"].to(device).clone()
+    state.step = int(payload["step"])
+
+
+def train_step(state: TrainState, cfg, batch: Dict[str, torch.Tensor], lr: float,
+               meta_gate: float, generator: Optional[torch.Generator] = None,
+               draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """One step on ``batch`` (images, gt_class_ids, gt_boxes, gt_masks as
+    tensors on the model's device). Updates ``state`` in place and returns
+    the metrics as tensors (no host sync): the five losses, total_loss,
+    meta_loss, big_loss, fpn_ot_loss, grad_norm (with CLIP_GRAD),
+    positive_rois and small_rois_p2..p4 (small RoIs of a class per meta
+    level)."""
+    model, opt = state.model, state.optimizer
+    out = model.forward_train(batch["images"], batch["gt_class_ids"], batch["gt_boxes"],
+                              batch["gt_masks"], generator=generator, draws=draws)
+    detailed = {k: out[k] for k in LOSS_KEYS}
+    total = sum(detailed.values())
+    zero = total.new_zeros(())
+    meta, big_loss = zero, zero
+    new_buf, new_cnt = state.buffer, state.buffer_cnt
+    stats = out.get("intertwiner")
+    if cfg.DEV.SWITCH and not cfg.DEV.BASELINE and stats is not None:
+        dev_cfg = {"buffer_size": cfg.DEV.BUFFER_SIZE, "loss_choice": cfg.DEV.LOSS_CHOICE,
+                   "inst_loss": cfg.DEV.INST_LOSS}
+        meta, new_buf, new_cnt = intertwiner_meta(dev_cfg, state.buffer, state.buffer_cnt, stats)
+        total = total + meta_gate * cfg.DEV.LOSS_FAC * meta
+        big_loss = stats["big_loss"].mean()
+        big_fac = cfg.DEV.BIG_LOSS_FAC if cfg.DEV.BIG_SUPERVISE else 0.0
+        total = total + big_fac * big_loss
+
+    opt.zero_grad(set_to_none=True)
+    total.backward()
+    params = [p for p in model.parameters() if p.requires_grad]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    metrics = {k: v.detach() for k, v in detailed.items()}
+    metrics.update(total_loss=total.detach(), meta_loss=meta.detach(),
+                   big_loss=big_loss.detach(), fpn_ot_loss=zero,
+                   positive_rois=out["positive_rois"])
+    if stats is not None:
+        for i, level in enumerate((2, 3, 4)):
+            metrics[f"small_rois_p{level}"] = stats["small_cnt"][i].sum()
+    if cfg.TRAIN.CLIP_GRAD:
+        metrics["grad_norm"] = clip_global_norm([p.grad for p in params],
+                                                cfg.TRAIN.MAX_GRAD_NORM)
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
+    state.buffer, state.buffer_cnt = new_buf.detach(), new_cnt.detach()
+    state.step += 1
+    return metrics

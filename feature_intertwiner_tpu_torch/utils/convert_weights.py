@@ -16,6 +16,12 @@ torch ``ConvTranspose2d`` ``[I, O, kh, kw]`` spatially flipped; flax Dense
 It is strict: a flax leaf that maps to no port name raises. Loading the
 result with ``load_state_dict(strict=True)`` checks the other direction,
 that every port parameter and buffer was filled.
+
+:func:`flax_module_path` is the inverse map, from a port module name to its
+flax path (the trainer applies the JAX package's stage regexes to it), and
+:func:`from_jax_train_state` turns a JAX ``TrainState`` (params, BN
+statistics, the SGD momentum traces, the intertwiner buffer) into the port
+trainer's state.
 """
 
 from __future__ import annotations
@@ -52,6 +58,33 @@ _MODULES = (
     (r"dev/critic/conv3", r"dev_roi.feat_extract.6"),
     (r"dev/critic/bn3", r"dev_roi.feat_extract.7"),
 )
+# port module name -> flax module path: the inverse of _MODULES (mask.conv5
+# before mask.conv\d, which would take it)
+_FLAX_MODULES = (
+    (r"fpn\.C1\.0", r"backbone/c1_conv"),
+    (r"fpn\.C1\.1", r"backbone/c1_bn"),
+    (r"fpn\.C(\d)\.(\d+)\.downsample\.0", r"backbone/c\1/block\2/proj_conv"),
+    (r"fpn\.C(\d)\.(\d+)\.downsample\.1", r"backbone/c\1/block\2/proj_bn"),
+    (r"fpn\.C(\d)\.(\d+)\.((?:conv|bn)\d)", r"backbone/c\1/block\2/\3"),
+    (r"fpn\.P(\d)_conv1", r"fpn/p\1_lateral"),
+    (r"fpn\.P(\d)_conv2\.1", r"fpn/p\1_out"),
+    (r"rpn\.conv_shared", r"rpn/shared"),
+    (r"rpn\.conv_class", r"rpn/cls"),
+    (r"rpn\.conv_bbox", r"rpn/bbox"),
+    (r"classifier\.conv(\d)", r"classifier/fc\1"),
+    (r"classifier\.(bn\d|linear_class|linear_bbox)", r"classifier/\1"),
+    (r"mask\.deconv", r"mask/upsample"),
+    (r"mask\.conv5", r"mask/logits"),
+    (r"mask\.((?:conv|bn)\d)", r"mask/\1"),
+    (r"dev_roi\.upsample\.(\d)\.0", r"dev/upsample\1/conv"),
+    (r"dev_roi\.upsample\.(\d)\.1", r"dev/upsample\1/bn"),
+    (r"dev_roi\.feat_extract\.0", r"dev/critic/conv1"),
+    (r"dev_roi\.feat_extract\.1", r"dev/critic/bn1"),
+    (r"dev_roi\.feat_extract\.3", r"dev/critic/conv2"),
+    (r"dev_roi\.feat_extract\.4", r"dev/critic/bn2"),
+    (r"dev_roi\.feat_extract\.6", r"dev/critic/conv3"),
+    (r"dev_roi\.feat_extract\.7", r"dev/critic/bn3"),
+)
 _TRANSPOSED = {"mask.deconv"}   # flax ConvTranspose layers
 _BN_LEAVES = {"scale": "weight", "bias": "bias",
               "mean": "running_mean", "var": "running_var"}
@@ -73,6 +106,16 @@ def _port_module(path: str) -> str:
         if m:
             return m.expand(template)
     raise ValueError(f"from_jax_params: no port module for flax {path!r}")
+
+
+def flax_module_path(module: str) -> str:
+    """The flax module path of a port module name (``fpn.C4.0.conv1`` ->
+    ``backbone/c4/block0/conv1``)."""
+    for pattern, template in _FLAX_MODULES:
+        m = re.fullmatch(pattern, module)
+        if m:
+            return m.expand(template)
+    raise ValueError(f"flax_module_path: no flax module for port {module!r}")
 
 
 def _port_tensor(module: str, leaf: str, value: np.ndarray) -> np.ndarray:
@@ -105,3 +148,22 @@ def from_jax_params(params, batch_stats) -> Dict[str, torch.Tensor]:
             arr = np.ascontiguousarray(_port_tensor(module, leaf, value), dtype=np.float32)
             sd[f"{module}.{name}"] = torch.from_numpy(arr)
     return sd
+
+
+def from_jax_train_state(state) -> Dict[str, object]:
+    """A JAX ``TrainState`` (``feature_intertwiner_tpu/train/step.py``) with
+    the SGD chain ``masked(add_decayed_weights) -> trace`` -> the port
+    trainer's state: ``model`` (a state_dict, from ``params`` and
+    ``batch_stats``), ``momentum`` (port parameter name -> the trace, laid
+    out as the parameter), ``buffer``, ``buffer_cnt`` and ``step``. Load it
+    with ``train/step.py::load_trainer_state``."""
+    model = from_jax_params(state.params, state.batch_stats)
+    trace = from_jax_params(state.opt_state[1].trace, {})
+    momentum = {k: v for k, v in trace.items() if not k.endswith("num_batches_tracked")}
+    return {
+        "model": model,
+        "momentum": momentum,
+        "buffer": torch.from_numpy(np.asarray(state.buffer, np.float32)),
+        "buffer_cnt": torch.from_numpy(np.asarray(state.buffer_cnt, np.float32)),
+        "step": int(np.asarray(state.step)),
+    }

@@ -1,6 +1,6 @@
-"""The port stands alone: no JAX, no flax, no OpenCV, nothing of the JAX
-package; PyYAML only inside the function that reads YAML; and its entry
-points run on the GPU unless the caller asks for the CPU."""
+"""The port stands alone: no JAX, no flax, no OpenCV, no PIL, nothing of
+the JAX package; PyYAML only inside the function that reads YAML; and its
+entry points run on the GPU unless the caller asks for the CPU."""
 
 import ast
 import glob
@@ -14,12 +14,16 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "feature_intertwiner_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "cv2", "feature_intertwiner_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "cv2", "PIL", "feature_intertwiner_tpu")
 
 SCRIPT = r"""
+import importlib
+import pkgutil
 import sys
 import numpy as np
 import feature_intertwiner_tpu_torch as port
+for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(mod.name)
 from feature_intertwiner_tpu_torch.config import FLAGSHIP_OVERRIDES, build_config
 
 cfg = build_config(opts=list(FLAGSHIP_OVERRIDES) + [
@@ -32,7 +36,7 @@ images = [np.random.RandomState(0).randint(0, 256, (40, 60, 3)).astype(np.uint8)
 out = port.detect(model, images, cfg)
 assert len(out) == 1 and set(out[0]) == {"rois", "class_ids", "scores", "masks"}
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "yaml")
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "PIL", "yaml")
              or m == "feature_intertwiner_tpu" or m.startswith("feature_intertwiner_tpu."))
 print("LOADED", bad)
 sys.exit(1 if bad else 0)
