@@ -41,7 +41,24 @@ Phases, each of which must pass:
    versions) from the same weights and inputs; the pyramid, and the
    detections of the second stage fed the same proposals, must agree; then
    one train step from the same weights, batch, draws and proposals: losses
-   within 1e-4 relative, parameters within 1e-5, the buffer within 1e-4.
+   within 1e-4 relative, parameters within 1e-5, the buffer within 1e-4;
+9. roi_single: the ``crop`` sweep (B=8, 1024 boxes per image, 256² x 256,
+   7²) and the ``stage`` sweep at B=8 of ``tools/profile_roi.py``, their
+   launches counted from 0; then K4 and K5 on the ``crop`` tensors against
+   their plain versions within 1e-5, K4 with extrapolation -1.5 on
+   out-of-range and inverted boxes, and the gradient of
+   ``crop_and_resize_fused`` on the card against the CPU's within 1e-5 of
+   its largest value;
+10. window_probe: the ``window`` sweep (K6 on a [8, 256, 256, 256] bf16 map
+   at 4096 windows of 8x8 to 64x64), each size against its plain version
+   within 1e-5 of the windows' sums of magnitudes, with GB/s and bound;
+11. eval_path: ``test_model`` (bbox and segm) with the flagship model over
+   16 synthetic images, counted from 0: K1 twice and K2 at least twice per
+   batch of TEST.BATCH_SIZE; the 12 bbox and 12 segm stats, images per
+   second and the device time of one batch's ``detect()``; then a small
+   model evaluates on the card and on the CPU (fed the card's proposals):
+   the same detections (boxes within 1 px, scores within 1e-4) and stats
+   within 0.02.
 
 Float32 throughout: TF32 is switched off for cuDNN convolutions and for
 matmuls. The last three lines are a JSON object with one entry per kernel,
@@ -71,6 +88,9 @@ H100_FP32_OPS_PER_S = 67e12     # fp32 outside the tensor cores
 IOU_OPS_PER_PAIR = 4 + 4 + 2 + 1 + 2 + 1 + 1
 AREA_OPS_PER_BOX = 2 + 2 + 1
 ROI_OPS_PER_VALUE = 6           # three lerps of one pooled value
+# K4 and K5 per crop value: the y lerp of two tap columns (3 each), then
+# the 2-tap x product (1 - fx, two multiplies, one add)
+K45_OPS_PER_VALUE = 3 + 3 + 4
 EPS32 = 2.0 ** -23              # float32 machine epsilon
 # the RoIAlign gradient per valid sample and channel: a = g ly and g - a,
 # then per tap row p lx and p - p lx, and the four adds into the map
@@ -196,6 +216,33 @@ def greedy_pairs(nms_ops, boxes, valid, alive, thr, plus_one, strict) -> int:
     return total
 
 
+def k1_work(torch, roi_ops, feats, boxes, bidx, lidx, crop):
+    """What one RoIAlign forward call must do: (least bytes, distinct tap
+    rows, fp32 operations). The bytes are the distinct tap rows that valid
+    samples read, the boxes and indices, and the crops written once."""
+    taps, _, _, valid = roi_ops.tap_rows([f.shape for f in feats], boxes, bidx, lidx, crop)
+    rows = torch.cat([t[valid] for t in taps]).unique().numel()
+    n, c = boxes.shape[0], feats[0].shape[3]
+    values = n * crop[0] * crop[1] * c
+    return rows * c * 4 + n * 24 + values * 4, rows, values * ROI_OPS_PER_VALUE
+
+
+def covered_pixels(torch, origins, shape, sy, sx) -> int:
+    """The pixels of a [B, H, W, C] map that at least one window of
+    ``origins`` [N, 3] (b, y0, x0 // 8) covers: each window adds +1 and -1 at
+    its corners of a difference grid, whose 2-D prefix sum counts the
+    windows over every pixel."""
+    b, h, w, _ = shape
+    o = origins.to(torch.int64)
+    bi, y0, x0 = o[:, 0], o[:, 1], 8 * o[:, 2]
+    grid = torch.zeros((b, h + 1, w + 1), dtype=torch.int32, device=origins.device)
+    ones = torch.ones_like(bi, dtype=torch.int32)
+    for dy, dx, sign in ((0, 0, 1), (0, sx, -1), (sy, 0, -1), (sy, sx, 1)):
+        grid.index_put_((bi, y0 + dy, x0 + dx), sign * ones, accumulate=True)
+    count = grid.cumsum(1).cumsum(2)[:, :h, :w]
+    return int((count > 0).sum())
+
+
 class Recorder:
     """Wrap a module-level kernel wrapper so the main path's calls are kept
     (their arguments), while the original wrapper still launches and counts."""
@@ -215,20 +262,6 @@ class Recorder:
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.original)
         return False
-
-
-def box_grid(torch, boxes, crop, batch):
-    """``grid_sample``'s grid for the crops of ``boxes`` [N, 4] (normalised,
-    N a multiple of ``batch``, in image order): [batch, N / batch * ch, cw, 2]
-    in [-1, 1], sampling the box corners as ``align_corners=True`` does."""
-    n, (ch, cw) = boxes.shape[0], crop
-    ys = torch.linspace(0, 1, ch, device=boxes.device)
-    xs = torch.linspace(0, 1, cw, device=boxes.device)
-    by = boxes[:, 0:1] + (boxes[:, 2:3] - boxes[:, 0:1]) * ys
-    bx = boxes[:, 1:2] + (boxes[:, 3:4] - boxes[:, 1:2]) * xs
-    grid = torch.stack([bx[:, None, :].expand(n, ch, cw),
-                        by[:, :, None].expand(n, ch, cw)], dim=-1) * 2 - 1
-    return grid.reshape(batch, n // batch * ch, cw, 2)
 
 
 def profile_by_family(torch, fn, reps, families):
@@ -297,6 +330,7 @@ def main() -> int:
         from feature_intertwiner_tpu_torch.ops import cuda_build
         from feature_intertwiner_tpu_torch.ops import nms as nms_ops
         from feature_intertwiner_tpu_torch.ops import roi_align as roi_ops
+        from feature_intertwiner_tpu_torch.tools.profile_roi import box_grid
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
         return 2
@@ -426,18 +460,13 @@ def main() -> int:
             p_ms = cuda_ms(torch, lambda: roi_ops.multilevel_gather_plain(feats, boxes, bidx, lidx, crop, extrap), 5)
             # yardstick: one grid_sample over P2 for every box of the call
             p2 = feats[0].permute(0, 3, 1, 2)
-            n, (ch, cw) = boxes.shape[0], crop
-            grid = box_grid(torch, boxes, crop, p2.shape[0])
+            n = boxes.shape[0]
+            grid = box_grid(boxes, crop, p2.shape[0])
             l_ms = cuda_ms(torch, lambda: torch.nn.functional.grid_sample(
                 p2, grid, mode="bilinear", padding_mode="zeros", align_corners=True), 20)
-            # least bytes: the distinct tap rows that valid samples read,
-            # the boxes and indices, and the crops written once
-            taps, _, _, valid = roi_ops.tap_rows([f.shape for f in feats], boxes, bidx, lidx, crop)
-            rows = torch.cat([t[valid] for t in taps]).unique().numel()
-            c = feats[0].shape[3]
-            nbytes = rows * c * 4 + n * 24 + n * ch * cw * c * 4
+            nbytes, rows, n_ops = k1_work(torch, roi_ops, feats, boxes, bidx, lidx, crop)
             bound_bytes += nbytes
-            ops += n * ch * cw * c * ROI_OPS_PER_VALUE
+            ops += n_ops
             ms, plain_ms, lib_ms = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
             log(f"  roi_align_fwd n={n} crop={crop}: err {e:.3g}, {k_ms:.4f} ms, "
                 f"plain {p_ms:.4f} ms, grid_sample {l_ms:.4f} ms, {rows} tap rows, "
@@ -575,6 +604,7 @@ def main() -> int:
             the parameters it must and must not move."""
             before = {n: p.detach().clone() for n, p in st.model.named_parameters()}
             bwd_rec.calls.clear()               # keep the last step's cotangents only
+            fwd_rec.calls.clear()               # and its forward poolings
             counts0 = dict(cuda_build.launches)
             t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0.record()
@@ -607,7 +637,8 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         workflow.train_step = recorded_step
         try:
-            with Recorder(roi_ops, "roi_align_bwd") as bwd_rec:
+            with Recorder(roi_ops, "roi_align_bwd") as bwd_rec, \
+                    Recorder(roi_ops, "roi_align_fwd") as fwd_rec:
                 cuda_build.launches.clear()
                 for stage in ("heads", "4+", "all"):
                     workflow.train_model(trainer, loader, stage)
@@ -687,7 +718,8 @@ def main() -> int:
             torch, lambda: workflow.train_step(trainer.state, tcfg, batch, 1e-4, 1.0, gen),
             1, families)
         log_breakdown("TRAIN BREAKDOWN one 'all' step", *out)
-        train.update(launches=launches, bwd_calls=list(bwd_rec.calls), step_ms=per_stage)
+        train.update(launches=launches, bwd_calls=list(bwd_rec.calls),
+                     fwd_calls=list(fwd_rec.calls), step_ms=per_stage)
         shutil.rmtree(folder, ignore_errors=True)
 
     phase("train_path", train_path)
@@ -717,7 +749,7 @@ def main() -> int:
             b, h2, w2, c = shapes[0]
             p2 = torch.zeros((b, c, h2, w2), device="cuda", requires_grad=True)
             n, (ch, cw) = boxes.shape[0], crop
-            grid = box_grid(torch, boxes, crop, b)
+            grid = box_grid(boxes, crop, b)
             with torch.enable_grad():
                 sampled = torch.nn.functional.grid_sample(
                     p2, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
@@ -736,6 +768,20 @@ def main() -> int:
                 f"grid_sample backward {l_ms:.4f} ms, {call_bytes} bytes")
         if err > 1e-5:
             raise AssertionError(f"RoIAlign backward differs from its plain version by {err}")
+        # K1 on the train path: the last step's five forward poolings
+        fwd_ms, fwd_bound = [], 0.0
+        with torch.no_grad():
+            for args, kwargs in train["fwd_calls"]:
+                fwd_ms.append(cuda_ms(torch, lambda: roi_ops.roi_align_fwd(*args, **kwargs), 20))
+                k1_bytes, k1_rows, k1_ops = k1_work(torch, roi_ops, *args[:5])
+                b_ms = max(k1_bytes / H100_BYTES_PER_S, k1_ops / H100_FP32_OPS_PER_S) * 1e3
+                fwd_bound += b_ms
+                log(f"  roi_align_fwd on the train path: n={args[1].shape[0]} crop={args[4]} "
+                    f"levels={len(args[0])}: {fwd_ms[-1]:.4f} ms, bound {b_ms:.6f} ms "
+                    f"({k1_bytes} bytes, {k1_rows} tap rows)")
+        require(len(fwd_ms) == 5, f"{len(fwd_ms)} recorded forward calls in a train step, want 5")
+        log(f"  roi_align_fwd per train step: {sum(fwd_ms):.4f} ms over {len(fwd_ms)} launches, "
+            f"bound {fwd_bound:.6f} ms")
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = ops / H100_FP32_OPS_PER_S * 1e3
         log(f"  roi_align_bwd bound: {nbytes} bytes -> {t_bytes:.6f} ms at "
@@ -867,6 +913,248 @@ def main() -> int:
                 "the reference step had no positive RoI or no meta loss")
 
     phase("reference", reference)
+
+    # 9. the single-level RoI pooling kernels K4 and K5 -----------------------------
+    from feature_intertwiner_tpu_torch.tools import profile_roi
+
+    def roi_single():
+        """The ``crop`` and ``stage`` sweeps of tools/profile_roi.py (their
+        launches counted from 0), then K4 and K5 on the ``crop`` tensors
+        against their plain versions, K4 with a non-zero extrapolation on
+        out-of-range and inverted boxes, and the gradient of
+        ``crop_and_resize_fused`` on the card against the CPU."""
+        cuda_build.launches.clear()
+        crop_rows = profile_roi.crop(batch=8, boxes=1024, size=256, reps=5, device="cuda")
+        stage_rows = profile_roi.stage(batch=8, boxes=1000, size=1024, reps=5, device="cuda")
+        launches = {k: cuda_build.launches[k]
+                    for k in ("crop_and_resize_grouped", "crop_and_resize_grouped_mm")}
+        log("ROI_SINGLE LAUNCHES " + json.dumps(launches))
+        for title, rows in (("crop B=8, 1024 boxes per image, 256² x 256, 7²", crop_rows),
+                            ("stage B=8, 1000 RoIs per image, P2-P5 of 1024²", stage_rows)):
+            log(f"ROI_SINGLE {title}:")
+            for r in rows:
+                log(f"  {r['route']:64s} {r['dtype']:8s} {r['ms']:.4f} ms")
+        require(all(v >= 1 for v in launches.values()), f"K4/K5 launches {launches}")
+        route_ms = {r["route"].split(" ")[0]: r["ms"] for r in crop_rows}
+
+        image, boxes = profile_roi.crop_inputs(8, 1024, 256, "cuda")
+        g = torch.Generator(device="cuda").manual_seed(7)
+        wild = (torch.rand((8, 256, 4), device="cuda", generator=g) * 1.8 - 0.4).contiguous()
+        crop = (7, 7)
+        cases = [("crop_and_resize_grouped", roi_ops.crop_and_resize_grouped,
+                  roi_ops.crop_and_resize_grouped_plain, (boxes, crop), "roi_align.py:339"),
+                 ("crop_and_resize_grouped_mm", roi_ops.crop_and_resize_grouped_mm,
+                  roi_ops.crop_and_resize_grouped_mm_plain, (boxes, crop), "roi_align.py:507")]
+        # least bytes: the distinct tap rows that valid samples read, the
+        # boxes, the crops written once; operations: per value the y-lerp of
+        # two tap columns (3 each) and the 2-tap x product (4)
+        b, h, w, c = image.shape
+        ty, by, _, vy = roi_ops._grouped_axis(boxes[..., 0], boxes[..., 2], crop[0], h)
+        lx, rx, _, vx = roi_ops._grouped_axis(boxes[..., 1], boxes[..., 3], crop[1], w)
+        base = torch.arange(b, device="cuda")[:, None, None, None] * (h * w)
+        valid = vy[..., :, None] & vx[..., None, :]
+        rows = torch.cat([(base + y[..., :, None] * w + x[..., None, :])[valid]
+                          for y in (ty, by) for x in (lx, rx)]).unique().numel()
+        out_values = boxes.numel() // 4 * crop[0] * crop[1] * c
+        nbytes = rows * c * 4 + boxes.numel() * 4 + out_values * 4
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = out_values * K45_OPS_PER_VALUE / H100_FP32_OPS_PER_S * 1e3
+        for name, kernel, plain, args, line in cases:
+            got, want = kernel(image, *args), plain(image, *args)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            p_ms = cuda_ms(torch, lambda: plain(image, *args), 2)
+            log(f"  {name}: err {err:.3g}, {route_ms[name]:.4f} ms, plain {p_ms:.4f} ms, "
+                f"grid_sample {route_ms['F.grid_sample']:.4f} ms; bound {nbytes} bytes "
+                f"({rows} tap rows) -> {t_bytes:.6f} ms, {out_values * K45_OPS_PER_VALUE} fp32 "
+                f"ops -> {t_ops:.6f} ms")
+            require(err <= 1e-5, f"{name} differs from its plain version by {err}")
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "feature_intertwiner_tpu_torch/csrc/crop_and_resize.cu",
+                "replaces": f"feature_intertwiner_tpu/ops/{line}",
+                "launches": launches[name], "max_abs_err": err, "ms": route_ms[name],
+                "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": route_ms["F.grid_sample"]})
+        for crop_w in ((7, 7), (1, 1), (5, 9)):
+            got = roi_ops.crop_and_resize_grouped(image, wild, crop_w, -1.5)
+            want = roi_ops.crop_and_resize_grouped_plain(image, wild, crop_w, -1.5)
+            got_mm = roi_ops.crop_and_resize_grouped_mm(image, wild, crop_w)
+            want_mm = roi_ops.crop_and_resize_grouped_mm_plain(image, wild, crop_w)
+            torch.cuda.synchronize()
+            e, e_mm = float((got - want).abs().max()), float((got_mm - want_mm).abs().max())
+            extrap = int((got == -1.5).sum())
+            log(f"  out-of-range and inverted boxes, crop {crop_w}: K4 extrapolation -1.5 err "
+                f"{e:.3g} ({extrap} values extrapolated), K5 err {e_mm:.3g}")
+            require(e <= 1e-5 and e_mm <= 1e-5 and extrap > 0,
+                    "K4/K5 differ from their plain versions on out-of-range boxes")
+
+        # the fused gradient, card against the CPU's plain versions
+        sub_img, sub_boxes = image[:2].clone(), boxes[:2, :256].contiguous()
+        grads = []
+        for dev in ("cuda", "cpu"):
+            x = sub_img.detach().to(dev).requires_grad_(True)
+            out = roi_ops.crop_and_resize_fused(x, sub_boxes.to(dev), crop)
+            (out * out).sum().backward()
+            grads.append(x.grad.cpu())
+        top = float(grads[1].abs().max())
+        g_err = float((grads[0] - grads[1]).abs().max()) / max(top, 1e-30)
+        log(f"  crop_and_resize_fused gradient card vs CPU: rel err {g_err:.3g} "
+            f"(max |grad| {top:.4g})")
+        require(g_err <= 1e-5, f"the fused gradient differs by {g_err} of its largest value")
+
+    phase("roi_single", roi_single)
+
+    # 10. the window probe K6 ---------------------------------------------------------
+    def window_probe():
+        """The ``window`` sweep of tools/profile_roi.py (launches counted from
+        0), then each size's K6 against its plain version on the sweep's own
+        map and origins, relative to the windows' sums of magnitudes."""
+        from feature_intertwiner_tpu_torch.ops.window_sum import window_sum, window_sum_plain
+
+        cuda_build.launches.clear()
+        rows = profile_roi.window(batch=8, size=256, boxes=4096, reps=5, device="cuda")
+        launches = cuda_build.launches["window_sum"]
+        img, cases = profile_roi.window_cases(8, 256, 4096, "cuda")
+        by_route = {r["route"]: r for r in rows}
+        err, abs_err, ms, plain_ms, nbytes, ops = 0.0, 0.0, 0.0, 0.0, 0, 0
+        for sy, sx, o in cases:
+            r = by_route[f"window_sum (K6) {sy}x{sx}"]
+            got, want = window_sum(img, o, sy, sx), window_sum_plain(img, o, sy, sx)
+            mag = window_sum_plain(img.abs(), o, sy, sx)
+            torch.cuda.synchronize()
+            e = float(((got - want).abs() / mag.clamp_min(1e-30)).max())
+            err, abs_err = max(err, e), max(abs_err, float((got - want).abs().max()))
+            p_ms = cuda_ms(torch, lambda: window_sum_plain(img, o, sy, sx), 1)
+            n_el = o.shape[0] * sy * sx * img.shape[3]
+            # least bytes: the map pixels some window covers, read once (the
+            # windows overlap, and L2 serves the repeats), the origins, and
+            # the sums written once; operations: one add per window element
+            covered = covered_pixels(torch, o, img.shape, sy, sx)
+            call_bytes = covered * img.shape[3] * img.element_size() + o.numel() * 4 + got.numel() * 4
+            b_ms = call_bytes / H100_BYTES_PER_S * 1e3
+            w_ms = r["bytes"] / H100_BYTES_PER_S * 1e3
+            log(f"  window_sum {sy}x{sx}: rel err {e:.3g}, {r['ms']:.4f} ms, {r['GB/s']:.1f} GB/s "
+                f"of {r['bytes']} window bytes (those bytes at the HBM rate: {w_ms:.4f} ms); "
+                f"bound {call_bytes} bytes ({covered} pixels covered) -> {b_ms:.4f} ms; "
+                f"plain {p_ms:.3f} ms")
+            ms, plain_ms = ms + r["ms"], plain_ms + p_ms
+            nbytes += call_bytes
+            ops += n_el
+        for r in rows:
+            if r["route"].startswith("row_gather"):
+                log(f"  {r['route']}: {r['ms']:.4f} ms, {r['GB/s']:.1f} GB/s of {r['bytes']} bytes")
+        log(f"WINDOW LAUNCHES {launches}")
+        require(launches >= len(cases), f"window_sum launched {launches} times")
+        require(err <= 1e-5, f"window_sum differs from its plain version by {err} relative")
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = ops / H100_FP32_OPS_PER_S * 1e3
+        kernels.append({
+            "name": "window_sum", "route": "cuda",
+            "source": "feature_intertwiner_tpu_torch/csrc/window_sum.cu",
+            "replaces": "scripts/profile_window_dma.py:39", "launches": launches,
+            "max_abs_err": abs_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None})
+
+    phase("window_probe", window_probe)
+
+    # 11. evaluation: test_model on the card ------------------------------------------
+    def eval_path():
+        """``test_model`` with the flagship model (seeded, tempered weights)
+        over 16 synthetic images on the card, its launches counted from 0:
+        per batch of TEST.BATCH_SIZE images K1 twice and K2 at least twice.
+        Then a small model evaluates the same way on the card and on the CPU
+        (fed the card's proposals): the same detections and stats."""
+        import contextlib
+        import io
+        import shutil
+        import tempfile
+
+        from feature_intertwiner_tpu_torch.data import synthetic
+        from feature_intertwiner_tpu_torch.evaluation import COCO
+        from feature_intertwiner_tpu_torch.train import workflow
+
+        def evaluate(model, ecfg, data, tag, eval_masks=True):
+            folder = tempfile.mkdtemp(prefix=f"chip_smoke_eval_{tag}_", dir=os.path.join(ROOT, "build"))
+            ecfg.MISC.RESULT_FOLDER = folder
+            ecfg.MISC.LOG_FILE = os.path.join(folder, "log.txt")
+            api = COCO(dataset=data.coco_dataset())
+            with contextlib.redirect_stdout(io.StringIO()):    # COCOeval's tables
+                t0 = time.perf_counter()
+                stats = workflow.test_model(model, ecfg, data, api, epoch=0, eval_masks=eval_masks)
+                wall = time.perf_counter() - t0
+                with open(workflow.cache_path(ecfg, 0, data.num_images, eval_masks)) as f:
+                    results = json.load(f)
+                segm = workflow.coco_stats(api, results, [i["id"] for i in data.image_info], "segm")
+            shutil.rmtree(folder, ignore_errors=True)
+            return stats, segm, results, wall
+
+        data = synthetic.generate(num_images=16)
+        ecfg = build_config("meta_105_quick_1", "inference", opts=list(FLAGSHIP_OVERRIDES))
+        ecfg.DATASET.NUM_CLASSES = data.num_classes
+        model = seeded_model(build_model, ecfg, seed=0)
+        detect(model, [data.load_image(0), data.load_image(1)], ecfg)    # warm-up
+        torch.cuda.synchronize()
+        batches = math.ceil(data.num_images / ecfg.TEST.BATCH_SIZE)
+        cuda_build.launches.clear()
+        stats, segm, results, wall = evaluate(model, ecfg, data, "flagship")
+        launches = {k: cuda_build.launches[k] for k in ("roi_align_fwd", "nms_alive")}
+        log(f"EVAL LAUNCHES {json.dumps(launches)} over {batches} batches of "
+            f"{ecfg.TEST.BATCH_SIZE}; {len(results)} detections on {data.num_images} images; "
+            f"test_model {wall:.2f} s, {data.num_images / wall:.2f} images/s (COCOeval included)")
+        log("EVAL bbox " + " ".join(f"{v:.3f}" for v in stats))
+        log("EVAL segm " + " ".join(f"{v:.3f}" for v in segm))
+        require(launches["roi_align_fwd"] == 2 * batches, f"K1 launches {launches}")
+        require(launches["nms_alive"] >= 2 * batches, f"K2 launches {launches}")
+        require(len(results) > 0 and all(math.isfinite(r["score"]) for r in results),
+                "no detections, or a non-finite score")
+        chunk = [data.load_image(i) for i in range(ecfg.TEST.BATCH_SIZE)]
+        t0 = time.perf_counter()
+        detect(model, chunk, ecfg)
+        torch.cuda.synchronize()
+        det_s = time.perf_counter() - t0
+        log(f"EVAL detect() on one batch of {len(chunk)}: {det_s * 1e3:.1f} ms, "
+            f"{len(chunk) / det_s:.2f} images/s")
+        out = profile_by_family(torch, lambda: detect(model, chunk, ecfg), 1, families)
+        log_breakdown(f"EVAL BREAKDOWN detect() of {len(chunk)} images with masks", *out)
+        del model
+
+        # a small model, card against CPU, the CPU fed the card's proposals
+        small = build_config("smoke_small", "inference", opts=list(FLAGSHIP_OVERRIDES) + [
+            "MODEL.BACKBONE", "resnet50", "DATA.IMAGE_MIN_DIM", "96", "DATA.IMAGE_MAX_DIM", "128",
+            "RPN.ANCHOR_SCALES", "(8, 16, 32, 64, 128)", "RPN.PRE_NMS_LIMIT", "200",
+            "RPN.POST_NMS_ROIS_INFERENCE", "48", "TEST.DET_MAX_INSTANCES", "8"])
+        # 128² canvases: molding neither scales nor pads them, so both devices
+        # see the same pixels and the random model's proposals lie on them
+        sdata = synthetic.generate(num_images=24, size=(128, 128), seed=4, max_instances=3)
+        small.DATASET.NUM_CLASSES = sdata.num_classes
+        proposals = []
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            m = seeded_model(build_model, small, seed=3, device=dev)
+            propose = m._propose
+            if dev == "cuda":
+                m._propose = lambda *a, f=propose: proposals.append(f(*a)) or proposals[-1]
+            else:
+                m._propose = lambda *a: proposals.pop(0).cpu()
+            runs[dev] = evaluate(m, small, sdata, dev)
+        (sg, mg, rg, _), (sc, mc, rc, _) = runs["cuda"], runs["cpu"]
+        same = len(rg) == len(rc) and all(
+            a["image_id"] == b["image_id"] and a["category_id"] == b["category_id"]
+            for a, b in zip(rg, rc))
+        box_err = max((max(abs(u - v) for u, v in zip(a["bbox"], b["bbox"]))
+                       for a, b in zip(rg, rc)), default=0.0)
+        score_err = max((abs(a["score"] - b["score"]) for a, b in zip(rg, rc)), default=0.0)
+        stat_err = float(max(abs(sg - sc).max(), abs(mg - mc).max()))
+        log(f"EVAL small model card vs CPU: {len(rg)} / {len(rc)} detections, images and "
+            f"classes equal {same}, box err {box_err} px, score err {score_err:.3g}, "
+            f"stats err {stat_err:.3g} (bbox AP {sg[0]:.3f} / {sc[0]:.3f})")
+        require(same and len(rg) > 0 and box_err <= 1.0 and score_err <= 1e-4 and stat_err <= 0.02,
+                "the card's evaluation differs from the CPU's")
+
+    phase("eval_path", eval_path)
 
     if failures:
         log("FAILED phases: " + ", ".join(failures))

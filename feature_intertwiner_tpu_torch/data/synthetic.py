@@ -6,11 +6,15 @@ ellipses, thin stripes in three classes), but instead of writing PNGs and
 COCO polygons the port keeps each image and each instance's mask as arrays.
 A mask is the painted region itself; the JAX package rasterises a polygon
 (a 24-gon for an ellipse), so the two masks differ at a few border pixels.
+
+:meth:`InMemoryDataset.coco_dataset` gives the ground truth in COCO format
+for the evaluation: the JAX set's images, categories, boxes and areas (the
+drawn box of each instance, its area ``w h``), with each mask as an RLE.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -25,18 +29,50 @@ class InMemoryDataset:
     """Images and instance masks held in memory, with the registry the
     training pipeline reads (``data/transforms.py::load_image_and_gt``):
     ``num_classes`` (background included), ``class_names``, ``image_info``
-    and ``source_class_ids``."""
+    and ``source_class_ids``; and what the evaluation reads:
+    ``image_ids``, each ``image_info[i]["id"]`` (the COCO image id),
+    :meth:`get_source_class_id` and :meth:`coco_dataset`. Its classes are
+    COCO categories, as the JAX package loads its synthetic set through
+    ``load_coco``: internal class ``k`` is category ``k``."""
 
-    source = "synthetic"
+    source = "coco"
 
     def __init__(self, images: List[np.ndarray], masks: List[np.ndarray],
-                 class_ids: List[np.ndarray], class_names: List[str]):
-        self.images, self.masks, self.class_ids = images, masks, class_ids
-        self.class_names = ["BG"] + list(class_names)
+                 class_ids: List[np.ndarray], boxes: List[List[List[float]]]):
+        self.images, self.masks, self.class_ids, self.boxes = images, masks, class_ids, boxes
+        self.class_names = ["BG"] + [c["name"] for c in CATEGORIES]
         self.num_classes = len(self.class_names)
         self.num_images = len(images)
+        self.image_ids = np.arange(self.num_images)
         self.image_info = [{"id": i + 1, "source": self.source} for i in range(self.num_images)]
         self.source_class_ids = {self.source: list(range(self.num_classes))}
+
+    def get_source_class_id(self, class_id: int, source: str) -> int:
+        """The category id of internal class ``class_id`` (1 and up)."""
+        if source != self.source or not 1 <= class_id < self.num_classes:
+            raise ValueError(f"no {source} category for class {class_id}")
+        return CATEGORIES[class_id - 1]["id"]
+
+    def coco_dataset(self) -> Dict[str, list]:
+        """The ground truth as a COCO-format dict (for ``evaluation.COCO``):
+        one image record per image, one annotation per instance with its
+        drawn box ``[x, y, w, h]``, area ``w h`` and mask as a compressed RLE."""
+        from ..evaluation.rle import RLE
+
+        images, annotations = [], []
+        for i, (image, masks, cls, boxes) in enumerate(
+                zip(self.images, self.masks, self.class_ids, self.boxes)):
+            h, w = image.shape[:2]
+            images.append({"id": self.image_info[i]["id"], "height": h, "width": w,
+                           "file_name": f"synthetic_{i + 1:06d}.png"})
+            for k, box in enumerate(boxes):
+                annotations.append({
+                    "id": len(annotations) + 1, "image_id": self.image_info[i]["id"],
+                    "category_id": self.get_source_class_id(int(cls[k]), self.source),
+                    "bbox": [float(v) for v in box], "area": float(box[2] * box[3]),
+                    "iscrowd": 0, "segmentation": RLE.encode(masks[..., k]).to_coco()})
+        return {"images": images, "annotations": annotations,
+                "categories": [dict(c, supercategory="shape") for c in CATEGORIES]}
 
     def load_image(self, image_id: int) -> np.ndarray:
         return self.images[image_id]
@@ -57,10 +93,10 @@ def generate(num_images: int = 8, size: Tuple[int, int] = (240, 320), seed: int 
     rng = np.random.RandomState(seed)
     h, w = size
     yy, xx = np.mgrid[0:h, 0:w]
-    images, masks, class_ids = [], [], []
+    images, masks, class_ids, boxes = [], [], [], []
     for _ in range(num_images):
         canvas = rng.randint(0, 60, (h, w, 3)).astype(np.uint8)
-        inst, cls = [], []
+        inst, cls, drawn = [], [], []
         for _ in range(rng.randint(1, max_instances + 1)):
             cat = int(rng.randint(1, len(CATEGORIES) + 1))
             lo_w = max(2, min(30, w // 4, w // 2 - 1))
@@ -88,7 +124,9 @@ def generate(num_images: int = 8, size: Tuple[int, int] = (240, 320), seed: int 
             canvas[m] = color
             inst.append(m)
             cls.append(cat)
+            drawn.append([float(x0), float(y0), float(bw), float(bh)])
         images.append(canvas)
         masks.append(np.stack(inst, -1))
         class_ids.append(np.asarray(cls, np.int32))
-    return InMemoryDataset(images, masks, class_ids, [c["name"] for c in CATEGORIES])
+        boxes.append(drawn)
+    return InMemoryDataset(images, masks, class_ids, boxes)

@@ -48,20 +48,21 @@ def build_model(cfg, device=None, seed: Optional[int] = None) -> InterNet:
     return model.to(device=dev, memory_format=torch.channels_last).eval()
 
 
-def mold_inputs(images: Sequence[np.ndarray], cfg, device=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def mold_inputs(images: Sequence[np.ndarray], cfg, device=None, min_dim: Optional[int] = None,
+                max_dim: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Resize (aspect kept), centre-pad to IMAGE_MAX_DIM², subtract the mean
-    pixel, on ``device`` (default ``"cuda"``). Returns (molded [B, S, S, 3]
-    float32, windows [B, 4] float32: each image's un-padded region as pixel
-    (y1, x1, y2, x2))."""
+    pixel, on ``device`` (default ``"cuda"``). ``min_dim``/``max_dim``
+    replace the config's sizes (multi-scale testing). Returns (molded
+    [B, S, S, 3] float32, windows [B, 4] float32: each image's un-padded
+    region as pixel (y1, x1, y2, x2))."""
     device = resolve_device(device)
-    s = int(cfg.DATA.IMAGE_MAX_DIM)
+    s = int(max_dim or cfg.DATA.IMAGE_MAX_DIM)
     mean = torch.as_tensor(np.asarray(cfg.DATA.MEAN_PIXEL, np.float32), device=device)
     molded, windows = [], []
     for img in images:
         h, w = img.shape[:2]
         t = torch.from_numpy(np.ascontiguousarray(img)).to(device)
-        scale = resize_scale(h, w, cfg.DATA.IMAGE_MIN_DIM, s)
+        scale = resize_scale(h, w, min_dim or cfg.DATA.IMAGE_MIN_DIM, s)
         if scale != 1.0:
             r = bilinear(t, (round(h * scale), round(w * scale)))
             # OpenCV returns the input's type: round back to uint8 pixels
@@ -122,12 +123,15 @@ def unmold_detections(detections: np.ndarray, masks: Optional[np.ndarray],
 
 
 def detect(model: InterNet, images: Sequence[np.ndarray], cfg,
-           with_masks: bool = True) -> List[Dict[str, object]]:
+           with_masks: bool = True, min_dim: Optional[int] = None,
+           max_dim: Optional[int] = None) -> List[Dict[str, object]]:
     """Images (H×W×3 arrays) in, per-image detections out: ``rois``
     [n, 4] int32 pixel boxes, ``class_ids``, ``scores`` and ``masks`` (a
-    full-size binary mask per detection, or None)."""
+    full-size binary mask per detection, or None). ``min_dim``/``max_dim``
+    mold at another scale than the config's, for a model built for it
+    (``InterNet.at_image_size``)."""
     device = next(model.parameters()).device
-    molded, windows = mold_inputs(images, cfg, device)
+    molded, windows = mold_inputs(images, cfg, device, min_dim, max_dim)
     with torch.inference_mode():
         out = model.forward_inference(molded, windows, with_masks=with_masks)
         dets = out["detections"].cpu().numpy()

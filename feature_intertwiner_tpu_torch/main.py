@@ -1,17 +1,21 @@
 """Command line of the port, with the flags of the JAX package's ``main.py``::
 
-    python -m feature_intertwiner_tpu_torch.main --phase train --synthetic_data \
+    python -m feature_intertwiner_tpu_torch.main --phase {train,inference} --synthetic_data \
         [--config_name NAME] [--config_file cfg.yaml] [--debug 0|1] \
         [--device cuda|cpu] [KEY.SUBKEY VALUE ...]
 
 ``--phase train`` runs the three-stage schedule (heads, 4+, all; only 'all'
-with ``TRAIN.END2END``) with resume from the run's newest checkpoint, on the
-GPU unless ``--device cpu`` is given. Float32 throughout, TF32 off.
+with ``TRAIN.END2END``) with resume from the run's newest checkpoint, and
+with ``TRAIN.DO_VALIDATION`` an evaluation at the end of each stage.
+``--phase inference`` resumes the newest checkpoint of the run (its train
+folder's when the inference folder has none) and runs the COCO evaluation
+(``train/workflow.py::test_model``, the 12 bbox stats), caching the
+detections in ``results/<name>/inference/``. Both run on the GPU unless
+``--device cpu`` is given. Float32 throughout, TF32 off.
 
-What is not ported yet raises ``NotImplementedError``: the inference and
-visualize phases and the eval loop (``TRAIN.DO_VALIDATION``), which are
-slice S2 of the port, and COCO data on disk. ``--synthetic_data`` builds
-the JAX package's synthetic set (8 images) in memory.
+``--synthetic_data`` builds the JAX package's synthetic set (8 images) in
+memory, with its COCO ground truth. What is not ported yet raises
+``NotImplementedError``: ``--phase visualize`` and COCO data on disk.
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ import torch
 from .config import build_config
 from .data import synthetic
 from .data.loader import DetectionDataset, Loader
+from .evaluation import COCO
 from .inference import build_model
-from .train.workflow import Trainer, train_model
+from .train.workflow import Trainer, test_model, train_model
 from .utils.logging import print_log
 
 
@@ -46,14 +51,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Trainer:
+def main(argv: Optional[Sequence[str]] = None):
+    """Runs the phase; returns the :class:`Trainer` after ``train``, the 12
+    bbox stats after ``inference``."""
     args = parse_args(argv)
-    if args.phase != "train":
-        raise NotImplementedError(
-            f"--phase {args.phase}: the eval loop is slice S2 of the port, not ported yet")
+    if args.phase == "visualize":
+        raise NotImplementedError("--phase visualize is not ported yet")
     if not args.synthetic_data:
         raise NotImplementedError(
-            "COCO data on disk is not ported yet (slice S2); pass --synthetic_data")
+            "COCO data on disk is not ported yet (it needs an image decoder); "
+            "pass --synthetic_data")
     opts = ["CTRL.QUICK_VERIFY", "True"] + list(args.opts or [])
     cfg = build_config(config_name=args.config_name or "default", phase=args.phase,
                        config_file=args.config_file, opts=opts, debug=bool(args.debug),
@@ -68,11 +75,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     model = build_model(cfg, device=args.device, seed=cfg.MISC.SEED)
     print_log(f"device: {next(model.parameters()).device}", cfg.MISC.LOG_FILE, init=True)
     cfg.display(lambda msg: print_log(msg, cfg.MISC.LOG_FILE, quiet_terminal=True))
+    val_api = COCO(dataset=dataset.coco_dataset())
+    trainer = Trainer(model, cfg).resume()
+    if args.phase == "inference":
+        return test_model(trainer.model, cfg, dataset, val_api, epoch=trainer.epoch)
     loader = Loader(DetectionDataset(dataset, cfg, augment=True, seed=cfg.MISC.SEED),
                     batch_size=cfg.TRAIN.BATCH_SIZE, shuffle=True, seed=cfg.MISC.SEED)
-    trainer = Trainer(model, cfg).resume()
     for stage in ("all",) if cfg.TRAIN.END2END else ("heads", "4+", "all"):
-        train_model(trainer, loader, stage)
+        train_model(trainer, loader, stage, val_api=val_api, val_dataset=dataset)
     return trainer
 
 

@@ -18,6 +18,7 @@ the backbone stages inside), ``rpn``, ``dev_roi``, ``classifier`` and
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -124,12 +125,32 @@ class InterNet(nn.Module):
         self.classifier = BoxHead(num_classes, pool_size, fpn_channels)
         self.mask = MaskHead(num_classes, fpn_channels)
 
-        shapes = [[int(math.ceil(image_size / s))] * 2 for s in strides]
-        anchors = generate_pyramid_anchors(anchor_scales, anchor_ratios, shapes,
-                                           strides, anchor_stride)
-        self.register_buffer("anchors", torch.from_numpy(anchors), persistent=False)
+        self._anchor_spec = (tuple(anchor_scales), tuple(anchor_ratios), tuple(strides),
+                             anchor_stride)
+        self.register_buffer("anchors", self._anchors(image_size), persistent=False)
         self.register_buffer("bbox_std", torch.tensor(bbox_std, dtype=torch.float32),
                              persistent=False)
+
+    def _anchors(self, image_size: int) -> torch.Tensor:
+        scales, ratios, strides, stride = self._anchor_spec
+        shapes = [[int(math.ceil(image_size / s))] * 2 for s in strides]
+        return torch.from_numpy(generate_pyramid_anchors(scales, ratios, shapes, strides, stride))
+
+    def at_image_size(self, image_size: int) -> "InterNet":
+        """This model for images molded to ``image_size``² (multi-scale
+        testing, the JAX package's ``model.clone(image_size=...)``): the same
+        modules and parameters, with that size's anchors and RoI level
+        assignment."""
+        if image_size == self.image_size:
+            return self
+        other = copy.copy(self)
+        other._modules = dict(self._modules)
+        other._buffers = dict(self._buffers)
+        other._modules["dev_roi"] = copy.copy(self.dev_roi)
+        other.dev_roi.image_size = image_size
+        other.image_size = image_size
+        other._buffers["anchors"] = self._anchors(image_size).to(self.anchors.device)
+        return other
 
     @classmethod
     def from_config(cls, cfg) -> "InterNet":

@@ -2,7 +2,8 @@
 
 Port of ``feature_intertwiner_tpu/ops/boxes.py`` (``decode`` and ``clip``
 for inference, ``encode``, ``area`` and ``iou_matrix`` for the training
-targets), in the same operation order so that the two packages round alike.
+targets, ``boxes_from_masks``), in the same operation order so that the two
+packages round alike.
 """
 
 from __future__ import annotations
@@ -93,3 +94,24 @@ def iou_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     intersection = (x2 - x1).clamp_min(0.0) * (y2 - y1).clamp_min(0.0)
     union = area(b1) + area(b2) - intersection
     return intersection / (union + IOU_EPS)
+
+
+def boxes_from_masks(masks: torch.Tensor) -> torch.Tensor:
+    """Tight integer pixel boxes ``(y1, x1, y2, x2)``, exclusive of y2 and
+    x2, of binary masks [..., H, W] -> [..., 4] int32; an empty mask gives a
+    zero box."""
+    masks = masks.to(torch.bool)
+    h, w = masks.shape[-2], masks.shape[-1]
+    row_any = masks.any(dim=-1)                       # [..., H]
+    col_any = masks.any(dim=-2)                       # [..., W]
+    ys = torch.arange(h, dtype=torch.int32, device=masks.device)
+    xs = torch.arange(w, dtype=torch.int32, device=masks.device)
+    big = torch.tensor(10 ** 8, dtype=torch.int32, device=masks.device)
+    none = torch.tensor(-1, dtype=torch.int32, device=masks.device)
+    y1 = torch.where(row_any, ys, big).amin(dim=-1)
+    y2 = torch.where(row_any, ys, none).amax(dim=-1) + 1
+    x1 = torch.where(col_any, xs, big).amin(dim=-1)
+    x2 = torch.where(col_any, xs, none).amax(dim=-1) + 1
+    box = torch.stack([y1, x1, y2, x2], dim=-1)
+    empty = ~row_any.any(dim=-1)
+    return torch.where(empty[..., None], torch.zeros_like(box), box).to(torch.int32)

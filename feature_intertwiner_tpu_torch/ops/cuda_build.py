@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
                  "-Xptxas=-v")
-SOURCES = ("roi_align_fwd", "roi_align_bwd", "nms")
+SOURCES = ("roi_align_fwd", "roi_align_bwd", "nms", "crop_and_resize", "window_sum")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

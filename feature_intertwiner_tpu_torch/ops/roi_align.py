@@ -28,6 +28,15 @@ last bit or nearly.
 
 Layouts are the JAX package's: maps NHWC ``[B, H, W, C]``, boxes ``[N, 4]``
 normalised, crops ``[N, ch, cw, C]``.
+
+The single-level crops of boxes grouped per image (``[B, NB, 4]`` boxes,
+``[B, NB, ch, cw, C]`` crops) port the other two Pallas kernels of
+``ops/roi_align.py``: :func:`crop_and_resize_grouped` (K4,
+``_roi_align_kernel``, any ``extrapolation_value``) and
+:func:`crop_and_resize_grouped_mm` (K5, ``_roi_align_matmul_kernel``), both
+``csrc/crop_and_resize.cu`` on the card; and :func:`crop_and_resize_fused`,
+the JAX custom VJP of the same name (K4 forward, K3 backward). They sample
+as those kernels do, with a true division and no fused multiply-add.
 """
 
 from __future__ import annotations
@@ -457,3 +466,217 @@ def crop_and_resize_separable(
     wy = _interp_matrix(boxes[:, 0], boxes[:, 2], ch, h)
     wx = _interp_matrix(boxes[:, 1], boxes[:, 3], cw, w)
     return torch.einsum("niwc,njw->nijc", torch.einsum("nih,nhwc->niwc", wy, images), wx)
+
+
+# --- single-level crop_and_resize with boxes grouped per image (K4, K5) --------------
+def _grouped_axis(c0: torch.Tensor, c1: torch.Tensor, crop: int, dim: int):
+    """[B, NB] box starts and ends on one axis -> tap indices ``lo``, ``hi``
+    (int64), ``frac`` and ``valid``, each [B, NB, crop], rounded as the
+    single-level Pallas kernels compute them: ``step = ((c1 - c0)(dim-1)) /
+    (crop-1)`` by a true division (a divisor on the tensors' device, since
+    PyTorch multiplies by the reciprocal of a host scalar on the card), then
+    ``c0 (dim-1) + i step`` without a fused multiply-add."""
+    dm1 = float(dim - 1)
+    if crop > 1:
+        step = ((c1 - c0) * dm1) / c0.new_tensor(float(crop - 1))
+        i = torch.arange(crop, dtype=torch.float32, device=c0.device)
+        pos = (c0 * dm1)[..., None] + i * step[..., None]
+    else:
+        pos = ((0.5 * (c0 + c1)) * dm1)[..., None]
+    valid = (pos >= 0.0) & (pos <= dm1)
+    lo = torch.floor(pos)
+    frac = pos - lo
+    lo_i = lo.clamp(0.0, dm1).to(torch.int64)
+    hi_i = torch.ceil(pos).clamp(0.0, dm1).to(torch.int64)
+    return lo_i, hi_i, frac, valid
+
+
+def _grouped_taps(image: torch.Tensor, boxes: torch.Tensor, crop_size):
+    """What both grouped crops read: ``gather(yi, xi)`` -> [B, NB, ch, cw, C]
+    pixels of each box's image, and the per-axis taps of
+    :func:`_grouped_axis` broadcast to ``[B, NB, ch, cw, 1]``."""
+    b, h, w, c = image.shape
+    ch, cw = crop_size
+    ty, by, fy, vy = _grouped_axis(boxes[..., 0], boxes[..., 2], ch, h)
+    lx, rx, fx, vx = _grouped_axis(boxes[..., 1], boxes[..., 3], cw, w)
+    flat = image.reshape(-1, c)
+    base = (torch.arange(b, device=image.device) * (h * w))[:, None, None, None, None]
+
+    def gather(yi, xi):
+        idx = base + yi * w + xi                      # [B, NB, ch, cw, 1]
+        return flat[idx.reshape(-1)].reshape(*idx.shape[:-1], c)
+
+    def ys(t):
+        return t[..., :, None, None]
+
+    def xs(t):
+        return t[..., None, :, None]
+
+    return gather, (ys(ty), ys(by), ys(fy), ys(vy)), (xs(lx), xs(rx), xs(fx), xs(vx))
+
+
+def crop_and_resize_grouped_plain(image: torch.Tensor, boxes: torch.Tensor,
+                                  crop_size: Tuple[int, int],
+                                  extrapolation_value: float = 0.0) -> torch.Tensor:
+    """Plain version of the K4 kernel: per sample row the y-lerp of the two
+    tap rows, ``t + (b - t) fy``, then ``(1 - fx) r_l + fx r_r``;
+    ``extrapolation_value`` where the sample lies outside the map."""
+    gather, (ty, by, fy, vy), (lx, rx, fx, vx) = _grouped_taps(image, boxes, crop_size)
+    tl, tr, bl, br = gather(ty, lx), gather(ty, rx), gather(by, lx), gather(by, rx)
+    rl = tl + (bl - tl) * fy
+    rr = tr + (br - tr) * fy
+    out = (1.0 - fx) * rl + fx * rr
+    return torch.where(vy & vx, out, out.new_tensor(float(extrapolation_value)))
+
+
+def crop_and_resize_grouped_mm_plain(image: torch.Tensor, boxes: torch.Tensor,
+                                     crop_size: Tuple[int, int]) -> torch.Tensor:
+    """Plain version of the K5 kernel, its two interpolation products with
+    the zeros dropped: ``(1 - fy) img[lo] + fy img[hi]`` at the x taps (the
+    tap alone where ``lo == hi``, whose weight is exactly 1), then the same
+    along x; 0 outside the map."""
+    gather, (ty, by, fy, vy), (lx, rx, fx, vx) = _grouped_taps(image, boxes, crop_size)
+
+    def y_pass(xi):
+        top, bot = gather(ty, xi), gather(by, xi)
+        return torch.where(ty == by, top, (1.0 - fy) * top + fy * bot)
+
+    rl, rr = y_pass(lx), y_pass(rx)
+    out = torch.where(lx == rx, rl, (1.0 - fx) * rl + fx * rr)
+    return torch.where(vy & vx, out, out.new_zeros(()))
+
+
+def _check_grouped(name: str, image: torch.Tensor, boxes: torch.Tensor) -> None:
+    if image.dim() != 4 or image.dtype != torch.float32:
+        raise TypeError(f"{name}: image must be a [B, H, W, C] float32 map "
+                        "(bf16 maps are not ported yet)")
+    if (boxes.dim() != 3 or boxes.shape[0] != image.shape[0] or boxes.shape[2] != 4
+            or boxes.dtype != torch.float32):
+        raise ValueError(f"{name}: boxes must be [B, NB, 4] float32, B = {image.shape[0]}")
+    if boxes.device != image.device:
+        raise ValueError(f"{name}: image and boxes must be on one device")
+    if image.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {image.device}")
+    if image.device.type == "cuda" and not (image.is_contiguous() and boxes.is_contiguous()):
+        raise ValueError(f"{name} needs a contiguous NHWC image and contiguous boxes")
+
+
+# The C entry points' parameters between the shapes and the output:
+# K4 (crop_h, crop_w, extrapolation), K5 (channel tile, crop_h, crop_w).
+_GROUPED_PARAMS = {
+    "crop_and_resize_grouped": [ctypes.c_int, ctypes.c_int, ctypes.c_float],
+    "crop_and_resize_grouped_mm": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
+}
+
+
+def _launch_grouped(entry: str, image: torch.Tensor, boxes: torch.Tensor, crop_size,
+                    *params) -> torch.Tensor:
+    """Launch one entry point of ``csrc/crop_and_resize.cu`` on the current
+    stream: [B, NB, ch, cw, C] float32 crops."""
+    b, h, w, c = image.shape
+    nb = boxes.shape[1]
+    out = torch.empty((b, nb, *crop_size, c), dtype=torch.float32, device=image.device)
+    fn = getattr(cuda_build.load("crop_and_resize"), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5
+                   + _GROUPED_PARAMS[entry] + [ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream(image.device).cuda_stream
+        err = fn(image.data_ptr(), boxes.data_ptr(), b, nb, h, w, c, *params, out.data_ptr(),
+                 stream)
+    cuda_build.check(err, entry)
+    if nb > 0:  # the C entry launches nothing for no boxes
+        cuda_build.launches[entry] += 1
+    return out
+
+
+def crop_and_resize_grouped(image: torch.Tensor, boxes: torch.Tensor,
+                            crop_size: Tuple[int, int],
+                            extrapolation_value: float = 0.0) -> torch.Tensor:
+    """TF ``crop_and_resize`` of boxes grouped per image: image [B, H, W, C]
+    float32, boxes [B, NB, 4] normalised -> [B, NB, ch, cw, C] float32, any
+    ``extrapolation_value``, any NB and C.
+
+    Kernel wrapper: on CUDA tensors it launches ``csrc/crop_and_resize.cu``
+    (which replaces ``feature_intertwiner_tpu/ops/roi_align.py::
+    _roi_align_kernel``, behind ``crop_and_resize_pallas``); on CPU tensors
+    it runs :func:`crop_and_resize_grouped_plain`. Each launch adds one to
+    ``cuda_build.launches["crop_and_resize_grouped"]``."""
+    _check_grouped("crop_and_resize_grouped", image, boxes)
+    crop = tuple(int(v) for v in crop_size)
+    if image.device.type == "cpu":
+        return crop_and_resize_grouped_plain(image, boxes, crop, extrapolation_value)
+    return _launch_grouped("crop_and_resize_grouped", image, boxes, crop, *crop,
+                           float(extrapolation_value))
+
+
+SHARED_BYTES = 96 * 1024  # K5's shared-memory budget per block
+
+
+def mm_channel_tile(width: int, channels: int) -> int:
+    """K5's channel tile: the largest power of two up to 128 (and up to the
+    channel count) whose ``width x tile`` float32 row fits SHARED_BYTES."""
+    tile = 128
+    while tile > 1 and (tile >= 2 * channels or width * tile * 4 > SHARED_BYTES):
+        tile //= 2
+    if width * tile * 4 > SHARED_BYTES:
+        raise ValueError(f"crop_and_resize_grouped_mm: a map {width} wide does not fit "
+                         "shared memory")
+    return tile
+
+
+def crop_and_resize_grouped_mm(image: torch.Tensor, boxes: torch.Tensor,
+                               crop_size: Tuple[int, int]) -> torch.Tensor:
+    """The same crop as :func:`crop_and_resize_grouped` with extrapolation 0,
+    as two separable interpolation passes.
+
+    Kernel wrapper: on CUDA tensors it launches the second entry point of
+    ``csrc/crop_and_resize.cu`` (which replaces ``feature_intertwiner_tpu/
+    ops/roi_align.py::_roi_align_matmul_kernel``, behind
+    ``crop_and_resize_pallas_mm``); on CPU tensors it runs
+    :func:`crop_and_resize_grouped_mm_plain`. Each launch adds one to
+    ``cuda_build.launches["crop_and_resize_grouped_mm"]``."""
+    _check_grouped("crop_and_resize_grouped_mm", image, boxes)
+    crop = tuple(int(v) for v in crop_size)
+    if image.device.type == "cpu":
+        return crop_and_resize_grouped_mm_plain(image, boxes, crop)
+    tile = mm_channel_tile(image.shape[2], image.shape[3])
+    return _launch_grouped("crop_and_resize_grouped_mm", image, boxes, crop, tile, *crop)
+
+
+class CropAndResizeFused(torch.autograd.Function):
+    """K4 forward, K3 backward: the port of the JAX custom VJP
+    ``crop_and_resize_fused``. The backward is the one-level
+    :func:`roi_align_bwd` on the flattened boxes, as ``_fused_bwd`` takes
+    the XLA gather's VJP. K4 samples with a true division and K3 with a
+    reciprocal multiply and fused multiply-adds (as the JAX forward and its
+    XLA backward do), so at a position that lands on an integer the two may
+    tap cells one apart. The boxes get no gradient."""
+
+    @staticmethod
+    def forward(ctx, image, boxes, crop_size, extrapolation_value):
+        ctx.save_for_backward(boxes)
+        ctx.shape = tuple(image.shape)
+        ctx.crop_size = crop_size
+        return crop_and_resize_grouped(image, boxes, crop_size, extrapolation_value)
+
+    @staticmethod
+    def backward(ctx, g):
+        (boxes,) = ctx.saved_tensors
+        b, nb = boxes.shape[:2]
+        ch, cw = ctx.crop_size
+        flat = boxes.reshape(b * nb, 4).contiguous()
+        idx = torch.arange(b, dtype=torch.int32, device=boxes.device).repeat_interleave(nb)
+        level = torch.zeros_like(idx)
+        (d_image,) = roi_align_bwd(g.reshape(b * nb, ch, cw, ctx.shape[3]).contiguous(),
+                                   [ctx.shape], flat, idx, level, ctx.crop_size)
+        return d_image, None, None, None
+
+
+def crop_and_resize_fused(image: torch.Tensor, boxes: torch.Tensor,
+                          crop_size: Tuple[int, int],
+                          extrapolation_value: float = 0.0) -> torch.Tensor:
+    """Differentiable :func:`crop_and_resize_grouped` (gradient into the
+    image only): [B, H, W, C], [B, NB, 4] -> [B, NB, ch, cw, C]."""
+    crop = tuple(int(v) for v in crop_size)
+    return CropAndResizeFused.apply(image, boxes, crop, float(extrapolation_value))

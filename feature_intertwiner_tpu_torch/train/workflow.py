@@ -1,6 +1,7 @@
-"""The training loop: stages, epochs, iterations, checkpoints.
+"""The training loop (stages, epochs, iterations, checkpoints) and the
+COCO evaluation.
 
-Port of the training half of ``feature_intertwiner_tpu/train/workflow.py``:
+Port of ``feature_intertwiner_tpu/train/workflow.py``:
 
 - :class:`Trainer` holds the model, the :class:`TrainState` and the
   epoch/iteration counters; :meth:`Trainer.resume` restarts from the newest
@@ -13,22 +14,32 @@ Port of the training half of ``feature_intertwiner_tpu/train/workflow.py``:
   the loss line every ``SHOW_INTERVAL``, and ``SAVE_FREQ_WITHIN_EPOCH``
   saves per epoch. Each iteration's sampling generator is seeded from
   (seed, epoch, iteration), so a run resumed mid-epoch skips the iterations
-  it has done and replays nothing.
-
-The eval loop is slice S2 of the port and not here yet: with
-``TRAIN.DO_VALIDATION`` on, :func:`train_model` raises.
+  it has done and replays nothing. With ``TRAIN.DO_VALIDATION`` and a
+  validation set, a stage ends with :func:`test_model`;
+- :func:`test_model` evaluates a model on a dataset: inference in chunks of
+  ``TEST.BATCH_SIZE`` images through ``inference.detect`` (one scale, or
+  every ``TEST.MULTI_SCALE`` scale fused per image by :func:`fuse_multiscale`),
+  COCO-format results with RLE masks, the det-result cache (inference is
+  skipped when the cache of the same epoch, image count, mask mode, dtype
+  and scales exists), the bbox (and with masks the segm) COCOeval, and the
+  AP line in ``metrics.jsonl``. The JAX package's ``roi_unfit_overflow``
+  counter belongs to its TPU window kernel and has no counterpart here.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import time
-from typing import Dict
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..evaluation import COCOeval
+from ..evaluation.rle import RLE
+from ..inference import detect
 from ..utils.logging import MetricsLogger, format_loss_line, print_log
 from . import checkpoint as ckpt
 from .optim import learning_rate, set_trainable
@@ -77,13 +88,11 @@ class Trainer:
         return self
 
 
-def train_model(trainer: Trainer, loader, layers: str) -> None:
-    """One stage; its epochs end at the cumulative SCHEDULE of the stage."""
+def train_model(trainer: Trainer, loader, layers: str, val_api=None, val_dataset=None) -> None:
+    """One stage; its epochs end at the cumulative SCHEDULE of the stage.
+    With ``TRAIN.DO_VALIDATION`` and a ``val_dataset`` (and its COCO index
+    ``val_api``), the stage ends with an evaluation of its last epoch."""
     cfg = trainer.cfg
-    if cfg.TRAIN.DO_VALIDATION:
-        raise NotImplementedError(
-            "TRAIN.DO_VALIDATION: the eval loop is slice S2 of the port, not "
-            "ported yet; pass TRAIN.DO_VALIDATION False")
     stage_name = layers.upper()
     if trainer.iter > len(loader):
         # resumed from an end-of-epoch checkpoint: start the next epoch
@@ -105,6 +114,9 @@ def train_model(trainer: Trainer, loader, layers: str) -> None:
         trainer.iter = 1
         trainer.epoch = ep
     trainer.epoch += 1
+    if cfg.TRAIN.DO_VALIDATION and val_dataset is not None:
+        print_log(f"\nValidation at end of stage [{stage_name}] ...", cfg.MISC.LOG_FILE)
+        test_model(trainer.model, cfg, val_dataset, val_api, epoch=trainer.epoch - 1)
 
 
 BATCH_KEYS = ("images", "gt_class_ids", "gt_boxes", "gt_masks")
@@ -159,3 +171,187 @@ def train_epoch(trainer: Trainer, loader, layers: str, epoch: int,
             ckpt.save_checkpoint(cfg.MISC.RESULT_FOLDER, trainer.state, epoch, it,
                                  keep=cfg.TRAIN.KEEP_CHECKPOINTS)
     trainer.iter = 1
+
+
+# --- evaluation -----------------------------------------------------------------------
+def _np_greedy_nms(boxes: np.ndarray, scores: np.ndarray, thresh: float) -> np.ndarray:
+    """Host greedy NMS over (y1, x1, y2, x2) boxes -> kept indices, for the
+    fusion of several test scales."""
+    order = np.argsort(-scores, kind="stable")
+    areas = (np.maximum(boxes[:, 2] - boxes[:, 0], 0)
+             * np.maximum(boxes[:, 3] - boxes[:, 1], 0))
+    suppressed = np.zeros(len(boxes), bool)
+    keep = []
+    for i in order:
+        if suppressed[i]:
+            continue
+        keep.append(i)
+        yy1 = np.maximum(boxes[i, 0], boxes[:, 0])
+        xx1 = np.maximum(boxes[i, 1], boxes[:, 1])
+        yy2 = np.minimum(boxes[i, 2], boxes[:, 2])
+        xx2 = np.minimum(boxes[i, 3], boxes[:, 3])
+        inter = np.maximum(yy2 - yy1, 0) * np.maximum(xx2 - xx1, 0)
+        iou = inter / np.maximum(areas[i] + areas - inter, 1e-9)
+        suppressed |= iou > thresh
+    return np.asarray(keep, np.int64)
+
+
+def fuse_multiscale(per_scale, max_instances: int, thresh: float):
+    """One image's detections from several test scales, each (boxes,
+    class_ids, scores, full_masks) in original-image pixels: per-class greedy
+    NMS across the scales, then the ``max_instances`` best by score."""
+    boxes = np.concatenate([p[0] for p in per_scale]).astype(np.float32)
+    cls = np.concatenate([p[1] for p in per_scale])
+    scores = np.concatenate([p[2] for p in per_scale])
+    masks = [m for p in per_scale for m in p[3]]
+    keep_all = []
+    for c in np.unique(cls):
+        idx = np.where(cls == c)[0]
+        keep_all.extend(idx[_np_greedy_nms(boxes[idx], scores[idx], thresh)])
+    keep = np.asarray(sorted(keep_all, key=lambda i: -scores[i])[:max_instances], np.int64)
+    return (boxes[keep].astype(np.int32), cls[keep], scores[keep], [masks[i] for i in keep])
+
+
+def _detect_stream(cfg, val_dataset, image_ids: Sequence[int], eval_masks: bool, forms,
+                   combine):
+    """Inference in chunks of ``TEST.BATCH_SIZE`` images. ``forms`` are
+    (model, min_dim, max_dim): each chunk is decoded once and detected in
+    every form; ``combine`` reduces an image's per-form (boxes, class_ids,
+    scores, full_masks) list to one. Yields (index, image, boxes, class_ids,
+    scores, full_masks) in original-image pixels."""
+    bs = max(1, int(cfg.TEST.BATCH_SIZE))
+    for start in range(0, len(image_ids), bs):
+        chunk = image_ids[start:start + bs]
+        images = [val_dataset.load_image(int(i)) for i in chunk]
+        per_form = [detect(model, images, cfg, with_masks=eval_masks, min_dim=lo, max_dim=hi)
+                    for model, lo, hi in forms]
+        for k, idx in enumerate(chunk):
+            per_image = [(r[k]["rois"], r[k]["class_ids"], r[k]["scores"], r[k]["masks"])
+                         for r in per_form]
+            yield (idx, images[k], *combine(per_image))
+
+
+def _detect_images(model, cfg, val_dataset, image_ids, eval_masks: bool):
+    """One scale, the config's: detections pass through unchanged."""
+    yield from _detect_stream(cfg, val_dataset, image_ids, eval_masks, [(model, None, None)],
+                              combine=lambda per: per[0])
+
+
+def _detect_images_multiscale(model, cfg, val_dataset, image_ids, eval_masks: bool,
+                              scales: Sequence[int]):
+    """Every scale ``s`` of ``scales`` (images molded to ``s``² with the
+    config's aspect of min to max dim), fused per image with cross-scale
+    per-class NMS."""
+    ratio = cfg.DATA.IMAGE_MIN_DIM / cfg.DATA.IMAGE_MAX_DIM
+    forms = [(model.at_image_size(int(s)), int(round(s * ratio)), int(s)) for s in scales]
+
+    def combine(per_image):
+        return fuse_multiscale(per_image, cfg.TEST.DET_MAX_INSTANCES,
+                               cfg.TEST.MULTI_SCALE_NMS_THRESHOLD)
+
+    yield from _detect_stream(cfg, val_dataset, image_ids, eval_masks, forms, combine)
+
+
+def cache_path(cfg, epoch: int, n_images: int, eval_masks: bool) -> str:
+    """The det-result cache of an evaluation; its name carries everything
+    the results depend on: epoch, image count, mask mode, dtype and scales."""
+    tags = f"_n{n_images}"
+    if eval_masks:
+        tags += "_masks"
+    if cfg.TEST.DTYPE:
+        tags += f"_{cfg.TEST.DTYPE}"
+    if cfg.TEST.MULTI_SCALE:
+        tags += "_ms" + "-".join(str(int(s)) for s in cfg.TEST.MULTI_SCALE)
+    return os.path.join(cfg.MISC.RESULT_FOLDER or ".", f"det_result_ep{epoch:04d}{tags}.json")
+
+
+def coco_stats(coco_api, results: List[dict], img_ids: Sequence[int], iou_type: str = "bbox",
+               log_file: Optional[str] = None) -> np.ndarray:
+    """The 12 COCOeval stats of COCO-format ``results`` on ``img_ids``."""
+    ev = COCOeval(coco_api, coco_api.loadRes(results), iou_type)
+    ev.params.img_ids = sorted(img_ids)
+    ev.evaluate()
+    ev.accumulate()
+    return ev.summarize(log_file)
+
+
+def test_model(model, cfg, val_dataset, coco_api, epoch: int = 0, limit: Optional[int] = None,
+               eval_masks: bool = False) -> np.ndarray:
+    """COCO evaluation of ``model`` on ``val_dataset`` against ``coco_api``
+    (its ground truth); returns the 12 bbox stats, and prints them (and the
+    segm stats with ``eval_masks``) to the console and the log.
+
+    ``val_dataset`` has ``image_ids``, ``load_image``, ``image_info`` (with
+    each image's COCO ``id``) and ``get_source_class_id``. Detections are
+    cached in the run's folder and read back when the cache exists."""
+    if cfg.TEST.DTYPE not in ("", "float32"):
+        raise NotImplementedError(f"TEST.DTYPE {cfg.TEST.DTYPE}: only float32 is ported")
+    if cfg.TEST.SAVE_IM:
+        raise NotImplementedError("TEST.SAVE_IM: the visualize module is not ported")
+    folder = cfg.MISC.RESULT_FOLDER or "."
+    os.makedirs(folder, exist_ok=True)
+    log_file = cfg.MISC.LOG_FILE
+    image_ids = list(val_dataset.image_ids)
+    if limit:
+        image_ids = image_ids[:limit]
+    cache = cache_path(cfg, epoch, len(image_ids), eval_masks)
+    from_cache = os.path.exists(cache)
+    if from_cache:
+        print_log(f"loading cached detections: {cache}", log_file)
+        with open(cache) as f:
+            results = json.load(f)
+    else:
+        t0 = time.time()
+        scales = [int(s) for s in (cfg.TEST.MULTI_SCALE or [])]
+        if scales:
+            stream = _detect_images_multiscale(model, cfg, val_dataset, image_ids, eval_masks,
+                                               scales)
+        else:
+            stream = _detect_images(model, cfg, val_dataset, image_ids, eval_masks)
+        results = []
+        for idx, _, boxes, class_ids, scores, full_masks in stream:
+            coco_id = int(val_dataset.image_info[int(idx)]["id"])
+            for j in range(len(class_ids)):
+                y1, x1, y2, x2 = boxes[j]
+                result = {
+                    "image_id": coco_id,
+                    "category_id": val_dataset.get_source_class_id(int(class_ids[j]), "coco"),
+                    "bbox": [float(x1), float(y1), float(x2 - x1), float(y2 - y1)],
+                    "score": float(scores[j]),
+                }
+                if eval_masks and full_masks[j] is not None:
+                    result["segmentation"] = RLE.encode(full_masks[j]).to_coco()
+                results.append(result)
+        dt = time.time() - t0
+        print_log(f"prediction time: {dt:.2f}s ({dt / max(len(image_ids), 1):.3f} s/im)",
+                  log_file)
+        MetricsLogger(os.path.join(folder, "metrics.jsonl")).log(
+            eval_epoch=epoch, n_images=len(image_ids), prediction_s=dt)
+        with open(cache, "w") as f:
+            json.dump(results, f)
+
+    if not results:
+        print_log("no detections produced; skipping COCOeval", log_file)
+        return np.zeros(12)
+    img_ids = [val_dataset.image_info[int(i)]["id"] for i in image_ids]
+    stats = coco_stats(coco_api, results, img_ids, "bbox", log_file)
+    # one AP line per epoch: a re-evaluation from the cache logs none when
+    # the first evaluation of the epoch already did
+    mpath = os.path.join(folder, "metrics.jsonl")
+    have_epoch = False
+    if from_cache and os.path.exists(mpath):
+        with open(mpath) as f:
+            for line in f:
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                if "AP" in rec and rec.get("epoch") == epoch:
+                    have_epoch = True
+                    break
+    if not have_epoch:
+        MetricsLogger(mpath).log(epoch=epoch, AP=stats[0], AP50=stats[1], AP75=stats[2],
+                                 AP_small=stats[3], AP_medium=stats[4], AP_large=stats[5])
+    if eval_masks:
+        coco_stats(coco_api, results, img_ids, "segm", log_file)
+    return stats

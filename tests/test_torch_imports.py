@@ -22,8 +22,14 @@ import pkgutil
 import sys
 import numpy as np
 import feature_intertwiner_tpu_torch as port
-for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
-    importlib.import_module(mod.name)
+names = [mod.name for mod in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+for name in ("evaluation.rle", "evaluation.coco", "evaluation.cocoeval", "ops.window_sum",
+             "tools.profile_roi", "train.workflow", "main"):
+    assert port.__name__ + "." + name in names, name
+# importing builds nothing: the RLE library is compiled at first use
+assert sys.modules["feature_intertwiner_tpu_torch.evaluation.rle"]._lib is None
 from feature_intertwiner_tpu_torch.config import FLAGSHIP_OVERRIDES, build_config
 
 cfg = build_config(opts=list(FLAGSHIP_OVERRIDES) + [
@@ -86,3 +92,7 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
         build_model(cfg, device="cuda")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mold_inputs([np.zeros((8, 8, 3), np.uint8)], cfg)
+    from feature_intertwiner_tpu_torch.tools import profile_roi
+    for sweep in (profile_roi.crop, profile_roi.stage, profile_roi.window):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            sweep(batch=1, boxes=1, size=32)

@@ -1,0 +1,220 @@
+"""The port's single-level RoI pooling (K4, K5, the fused gradient), its
+window sum (K6) and ``tools/profile_roi.py``, against the JAX package on the
+CPU.
+
+The JAX Pallas kernels run in interpret mode, as ``tests/test_roi_align.py``
+runs them; the window probe's ``window_dma_checksum`` is imported from
+``scripts/profile_window_dma.py`` by path. On CPU tensors the port's
+wrappers run their kernels' plain versions.
+
+Tolerances: K4 and K5 within 1e-5 absolute (the JAX kernels' sample
+positions and products may round differently under XLA); the fused
+gradient within 1e-5 absolute; K6 within 1e-6 (float32) and 1e-5
+(bfloat16) of each window's sum of magnitudes.
+"""
+
+import importlib.util
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import feature_intertwiner_tpu.ops.roi_align as jax_ra
+from feature_intertwiner_tpu_torch.ops import cuda_build
+from feature_intertwiner_tpu_torch.ops import roi_align as ra
+from feature_intertwiner_tpu_torch.ops.window_sum import window_sum, window_sum_plain
+from feature_intertwiner_tpu_torch.tools import profile_roi
+
+T = torch.from_numpy
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _probe_module():
+    spec = importlib.util.spec_from_file_location(
+        "profile_window_dma", os.path.join(ROOT, "scripts", "profile_window_dma.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _grouped_boxes(rng, b, nb, lo=-0.3, hi=1.1):
+    """Boxes per image with out-of-range, inverted and degenerate ones."""
+    y1x1 = rng.uniform(lo, hi, (b, nb, 2))
+    boxes = np.concatenate([y1x1, y1x1 + rng.uniform(-0.3, 0.6, (b, nb, 2))], -1)
+    boxes[0, 0] = [0.3, 0.3, 0.3, 0.3]          # a point
+    boxes[0, 1] = [0.8, 0.8, 0.2, 0.2]          # inverted
+    boxes[1, 0] = [0.0, 0.0, 1.0, 1.0]          # the whole map
+    boxes[1, 1] = [-1.0, -1.0, -0.5, -0.5]      # fully outside
+    return boxes.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def crop_case():
+    rng = np.random.RandomState(11)
+    image = rng.randn(2, 16, 20, 8).astype(np.float32)
+    return image, _grouped_boxes(rng, 2, 8)
+
+
+@pytest.mark.parametrize("crop", [(1, 1), (7, 7), (5, 9)])
+@pytest.mark.parametrize("extrap", [0.0, -1.5])
+def test_grouped_crop_matches_pallas_kernel(crop_case, crop, extrap):
+    image, boxes = crop_case
+    want = np.asarray(jax_ra.crop_and_resize_pallas(
+        jnp.asarray(image), jnp.asarray(boxes), crop, extrap, box_tile=4, channel_tile=8,
+        interpret=True))
+    got = ra.crop_and_resize_grouped(T(image), T(boxes), crop, extrap).numpy()
+    assert got.shape == want.shape == (2, 8, *crop, 8)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    if extrap:
+        assert (got == extrap).any()
+
+
+@pytest.mark.parametrize("crop", [(1, 1), (7, 7), (5, 9)])
+def test_grouped_mm_crop_matches_pallas_kernel(crop_case, crop):
+    image, boxes = crop_case
+    want = np.asarray(jax_ra.crop_and_resize_pallas_mm(
+        jnp.asarray(image), jnp.asarray(boxes), crop, box_tile=4, channel_tile=8,
+        interpret=True))
+    got = ra.crop_and_resize_grouped_mm(T(image), T(boxes), crop).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    # the same function as K4 with extrapolation 0
+    k4 = ra.crop_and_resize_grouped(T(image), T(boxes), crop).numpy()
+    np.testing.assert_allclose(got, k4, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("extrap", [0.0, -1.5])
+def test_fused_gradient_matches_jax(monkeypatch, extrap):
+    """``jax.grad`` through JAX's ``crop_and_resize_fused`` (its Pallas
+    forward in interpret mode) and the port's autograd gradient."""
+    real = jax_ra.crop_and_resize_pallas
+
+    def interpreted(image, boxes, crop_size, extrapolation_value=0.0):
+        return real(image, boxes, crop_size, extrapolation_value, box_tile=4, channel_tile=4,
+                    interpret=True)
+
+    monkeypatch.setattr(jax_ra, "crop_and_resize_pallas", interpreted)
+    rng = np.random.RandomState(12)
+    image = rng.randn(2, 10, 12, 4).astype(np.float32)
+    y1x1 = rng.uniform(-0.1, 0.6, (2, 4, 2))
+    boxes = np.concatenate([y1x1, y1x1 + rng.uniform(0.2, 0.5, (2, 4, 2))], -1).astype(np.float32)
+    weight = rng.randn(2, 4, 5, 6, 4).astype(np.float32)
+
+    def loss(img):
+        return jnp.sum(jax_ra.crop_and_resize_fused(img, jnp.asarray(boxes), (5, 6), extrap)
+                       * weight)
+
+    want = np.asarray(jax.grad(loss)(jnp.asarray(image)))
+    x = T(image.copy()).requires_grad_(True)
+    out = ra.crop_and_resize_fused(x, T(boxes), (5, 6), extrap)
+    (out * T(weight)).sum().backward()
+    assert x.grad.shape == image.shape
+    np.testing.assert_allclose(x.grad.numpy(), want, rtol=0, atol=1e-5)
+    assert np.abs(want).max() > 0.1
+
+
+@pytest.mark.parametrize("window", [(8, 8), (8, 16), (4, 24)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_window_sum_matches_jax_probe(window, dtype):
+    probe = _probe_module()
+    rng = np.random.RandomState(13)
+    b, h, w, c, n = 2, 20, 40, 16, 8
+    sy, sx = window
+    jimg = jnp.asarray(rng.randn(b, h, w, c).astype(np.float32), getattr(jnp, dtype))
+    origins = np.stack([rng.randint(0, b, n), rng.randint(0, h - sy + 1, n),
+                        rng.randint(0, (w - sx) // 8 + 1, n)], 1).astype(np.int32)
+    want = np.asarray(probe.window_dma_checksum(jimg, jnp.asarray(origins), sy, sx, bt=4,
+                                                interpret=True))
+    img = T(np.array(jimg.astype(jnp.float32))).to(getattr(torch, dtype))
+    got = window_sum(img, T(origins), sy, sx).numpy()
+    mag = window_sum_plain(img.abs(), T(origins), sy, sx).numpy()
+    tol = 1e-6 if dtype == "float32" else 1e-5
+    assert got.shape == (n, c) and got.dtype == np.float32
+    assert (np.abs(got - want) / mag).max() <= tol
+
+
+def test_window_sum_plain_order_and_edges():
+    """The plain version adds row-major, pixel by pixel; a window that
+    leaves the map gives NaN."""
+    rng = np.random.RandomState(14)
+    img = T(rng.randn(1, 6, 16, 4).astype(np.float32))
+    origins = T(np.array([[0, 1, 1], [0, 4, 0], [1, 0, 0]], np.int32))
+    got = window_sum(img, origins, 3, 5)
+    want = torch.zeros(4)
+    for y in range(3):
+        for x in range(5):
+            want = want + img[0, 1 + y, 8 + x]
+    assert torch.equal(got[0], want)
+    assert torch.isnan(got[1]).all() and torch.isnan(got[2]).all()   # y past H, b past B
+
+
+def test_wrappers_run_plain_on_the_cpu_and_check_their_arguments():
+    rng = np.random.RandomState(15)
+    image = T(rng.randn(2, 8, 8, 4).astype(np.float32))
+    boxes = T(_grouped_boxes(rng, 2, 3))
+    cuda_build.launches.clear()
+    assert torch.equal(ra.crop_and_resize_grouped(image, boxes, (3, 3), 2.0),
+                       ra.crop_and_resize_grouped_plain(image, boxes, (3, 3), 2.0))
+    assert torch.equal(ra.crop_and_resize_grouped_mm(image, boxes, (3, 3)),
+                       ra.crop_and_resize_grouped_mm_plain(image, boxes, (3, 3)))
+    origins = T(np.array([[0, 0, 0], [1, 2, 0]], np.int32))
+    window_sum(image, origins, 4, 4)
+    assert sum(cuda_build.launches.values()) == 0
+
+    for fn in (ra.crop_and_resize_grouped, ra.crop_and_resize_grouped_mm):
+        with pytest.raises(TypeError):
+            fn(image.double(), boxes, (3, 3))
+        with pytest.raises(TypeError):
+            fn(image.bfloat16(), boxes, (3, 3))
+        with pytest.raises(ValueError):
+            fn(image, boxes.reshape(-1, 4), (3, 3))
+        with pytest.raises(ValueError):
+            fn(image, boxes[:1], (3, 3))
+        with pytest.raises(ValueError):
+            fn(image, boxes.to("meta"), (3, 3))
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            fn(image.to("meta"), boxes.to("meta"), (3, 3))
+    with pytest.raises(TypeError):
+        window_sum(image.double(), origins, 2, 2)
+    with pytest.raises(ValueError):
+        window_sum(image, origins.long(), 2, 2)
+    with pytest.raises(ValueError):
+        window_sum(image, origins.to("meta"), 2, 2)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        window_sum(image.to("meta"), origins.to("meta"), 2, 2)
+
+
+def test_mm_channel_tile_fits_shared_memory():
+    assert ra.mm_channel_tile(256, 256) == 64
+    assert ra.mm_channel_tile(64, 256) == 128
+    assert ra.mm_channel_tile(20, 8) == 8
+    assert ra.mm_channel_tile(20, 3) == 4
+    with pytest.raises(ValueError):
+        ra.mm_channel_tile(40000, 256)
+
+
+# --- tools/profile_roi.py ------------------------------------------------------------
+@pytest.mark.parametrize("command", ["crop", "stage", "window"])
+def test_profile_roi_runs_small_on_the_cpu(command, capsys):
+    rows = profile_roi.main([command, "--device", "cpu", "--batch", "2", "--boxes", "128",
+                             "--size", "64", "--reps", "1"])
+    text = capsys.readouterr().out
+    assert text.startswith(f"{command} on cpu")
+    assert rows and all(r["ms"] > 0 for r in rows)
+    routes = " ".join(r["route"] for r in rows)
+    if command == "crop":
+        assert "(K4)" in routes and "(K5)" in routes and "grid_sample" in routes
+    elif command == "stage":
+        assert routes.count("(K1)") == 2 and "(K5) on P4 4², 128 per image" in routes
+    else:
+        assert "(K6) 8x8" in routes and "(K6) 32x32" in routes and "(K6) 64x64" not in routes
+        assert all(r["GB/s"] > 0 for r in rows)
+        assert "row_gather_checksum 784 rows" in routes
+
+
+def test_profile_roi_defaults_to_the_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        profile_roi.main(["crop", "--batch", "1", "--boxes", "1", "--size", "8"])

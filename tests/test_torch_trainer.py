@@ -3,7 +3,7 @@
 - The trainer over a tiny in-memory synthetic set: three stages with their
   learning rates and trainable sets, a run killed in stage 4+ that resumes
   from its mid-stage checkpoint and ends bit-equal to an uninterrupted run,
-  and ``TRAIN.DO_VALIDATION`` raising until the eval loop is ported.
+  and ``TRAIN.DO_VALIDATION`` ending a stage with an evaluation.
 - ``python -m feature_intertwiner_tpu_torch.main``: a CPU run when asked, the
   GPU by default, and what is not ported yet raising.
 - The data pipeline against the JAX package's (PNG files, COCO polygons,
@@ -102,10 +102,19 @@ def test_trainer_runs_three_stages_and_resumes_mid_stage(tmp_path, monkeypatch):
 
 
 def test_validation_raises_until_the_eval_loop_is_ported(tmp_path):
+    """The eval loop is ported: with ``TRAIN.DO_VALIDATION`` a stage ends
+    with an evaluation of its last epoch when a validation set is given,
+    and without one it skips it, as the JAX trainer does."""
+    from feature_intertwiner_tpu_torch.evaluation import COCO
+
     data = synthetic.generate(num_images=2, size=(96, 128), seed=1, max_instances=2)
     trainer, loader = _trainer(tmp_path, data, ["TRAIN.DO_VALIDATION", "True"])
-    with pytest.raises(NotImplementedError, match="S2"):
-        workflow.train_model(trainer, loader, "heads")
+    workflow.train_model(trainer, loader, "heads")
+    assert not list(tmp_path.glob("det_result_*.json"))
+    workflow.train_model(trainer, loader, "4+", val_api=COCO(dataset=data.coco_dataset()),
+                         val_dataset=data)
+    assert (tmp_path / "det_result_ep0002_n2.json").exists()
+    assert "Validation at end of stage [4+]" in (tmp_path / "log.txt").read_text()
 
 
 CLI_OPTS = TRAIN_OPTS[len(FLAGSHIP_OVERRIDES):]
@@ -124,15 +133,15 @@ def test_cli_trains_on_the_cpu_when_asked(tmp_path, monkeypatch):
 def test_cli_runs_on_the_gpu_by_default_and_raises_for_what_waits(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     base = ["--synthetic_data", "--config_name", "cli", *CLI_OPTS]
-    with pytest.raises(NotImplementedError, match="S2"):
-        port_main.main(["--phase", "inference", *base])
-    with pytest.raises(NotImplementedError, match="synthetic_data"):
-        port_main.main(["--phase", "train", "--config_name", "cli"])
-    with pytest.raises(NotImplementedError, match="DO_VALIDATION"):
-        port_main.main(["--phase", "train", "--device", "cpu", *base])
+    with pytest.raises(NotImplementedError, match="visualize"):
+        port_main.main(["--phase", "visualize", *base])
+    for phase in ("train", "inference"):
+        with pytest.raises(NotImplementedError, match="synthetic_data"):
+            port_main.main(["--phase", phase, "--config_name", "cli"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        port_main.main(["--phase", "train", *base, "TRAIN.DO_VALIDATION", "False"])
+    for phase in ("train", "inference"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port_main.main(["--phase", phase, *base, "TRAIN.DO_VALIDATION", "False"])
 
 
 # --- data ---------------------------------------------------------------------------------
