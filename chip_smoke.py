@@ -36,7 +36,8 @@ Phases, each of which must pass:
 7. kernel_roi_align_bwd: the RoIAlign backward replayed on the last train
    step's cotangents, within 1e-5 of its plain version relative to the
    largest gradient and bit-equal over two launches, timed beside its plain
-   version, its bound and grid_sample's backward;
+   version, its bound and grid_sample's backward; the RoIAlign forward on
+   that step's five poolings, within 1e-5 of its plain version and timed;
 8. reference: a small model runs on the card and on the CPU (plain
    versions) from the same weights and inputs; the pyramid, and the
    detections of the second stage fed the same proposals, must agree; then
@@ -44,17 +45,20 @@ Phases, each of which must pass:
    within 1e-4 relative, parameters within 1e-5, the buffer within 1e-4;
 9. roi_single: the ``crop`` sweep (B=8, 1024 boxes per image, 256² x 256,
    7²) and the ``stage`` sweep at B=8 of ``tools/profile_roi.py``, their
-   launches counted from 0; then K4 and K5 on the ``crop`` tensors against
-   their plain versions within 1e-5, K4 with extrapolation -1.5 on
-   out-of-range and inverted boxes, and the gradient of
-   ``crop_and_resize_fused`` on the card against the CPU's within 1e-5 of
-   its largest value;
+   launches counted from 0; then, on the very tensors each sweep timed, K4
+   and K5 at the ``crop`` shapes, K5 on the ``stage`` P4 map and K1 at its
+   7² and 14² poolings against their plain versions within 1e-5, K4 with
+   extrapolation -1.5 on out-of-range and inverted boxes, and the gradient
+   of ``crop_and_resize_fused`` on the card against the CPU's within 1e-5
+   of its largest value;
 10. window_probe: the ``window`` sweep (K6 on a [8, 256, 256, 256] bf16 map
    at 4096 windows of 8x8 to 64x64), each size against its plain version
-   within 1e-5 of the windows' sums of magnitudes, with GB/s and bound;
+   on the timed map and origins within 1e-5 of the windows' sums of
+   magnitudes, with GB/s and bound;
 11. eval_path: ``test_model`` (bbox and segm) with the flagship model over
    16 synthetic images, counted from 0: K1 twice and K2 at least twice per
-   batch of TEST.BATCH_SIZE; the 12 bbox and 12 segm stats, images per
+   batch of TEST.BATCH_SIZE, every call held against its plain version on
+   its own tensors; the 12 bbox and 12 segm stats, images per
    second and the device time of one batch's ``detect()``; then a small
    model evaluates on the card and on the CPU (fed the card's proposals):
    the same detections (boxes within 1 px, scores within 1e-4) and stats
@@ -445,6 +449,12 @@ def main() -> int:
     # 4. kernels against their plain versions --------------------------------
     kernels = []
 
+    def fold_err(name, err):
+        """Widen a kernel's ``max_abs_err`` by a check made on another path."""
+        for k in kernels:
+            if k["name"] == name:
+                k["max_abs_err"] = max(k["max_abs_err"], err)
+
     def roi_kernel():
         calls = state["roi_calls"]
         err, ms, plain_ms, lib_ms, bound_bytes, ops = 0.0, 0.0, 0.0, 0.0, 0, 0
@@ -768,10 +778,15 @@ def main() -> int:
                 f"grid_sample backward {l_ms:.4f} ms, {call_bytes} bytes")
         if err > 1e-5:
             raise AssertionError(f"RoIAlign backward differs from its plain version by {err}")
-        # K1 on the train path: the last step's five forward poolings
-        fwd_ms, fwd_bound = [], 0.0
+        # K1 on the train path: the last step's five forward poolings, each
+        # against its plain version and timed
+        fwd_ms, fwd_bound, fwd_err = [], 0.0, 0.0
         with torch.no_grad():
             for args, kwargs in train["fwd_calls"]:
+                got = roi_ops.roi_align_fwd(*args, **kwargs)
+                want = roi_ops.multilevel_gather_plain(*args, **kwargs)
+                torch.cuda.synchronize()
+                fwd_err = max(fwd_err, float((got - want).abs().max()))
                 fwd_ms.append(cuda_ms(torch, lambda: roi_ops.roi_align_fwd(*args, **kwargs), 20))
                 k1_bytes, k1_rows, k1_ops = k1_work(torch, roi_ops, *args[:5])
                 b_ms = max(k1_bytes / H100_BYTES_PER_S, k1_ops / H100_FP32_OPS_PER_S) * 1e3
@@ -781,7 +796,9 @@ def main() -> int:
                     f"({k1_bytes} bytes, {k1_rows} tap rows)")
         require(len(fwd_ms) == 5, f"{len(fwd_ms)} recorded forward calls in a train step, want 5")
         log(f"  roi_align_fwd per train step: {sum(fwd_ms):.4f} ms over {len(fwd_ms)} launches, "
-            f"bound {fwd_bound:.6f} ms")
+            f"bound {fwd_bound:.6f} ms; err {fwd_err:.3g} against its plain version")
+        require(fwd_err <= 1e-5, f"K1 differs from its plain version by {fwd_err} in training")
+        fold_err("roi_align_fwd", fwd_err)
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = ops / H100_FP32_OPS_PER_S * 1e3
         log(f"  roi_align_bwd bound: {nbytes} bytes -> {t_bytes:.6f} ms at "
@@ -919,13 +936,16 @@ def main() -> int:
 
     def roi_single():
         """The ``crop`` and ``stage`` sweeps of tools/profile_roi.py (their
-        launches counted from 0), then K4 and K5 on the ``crop`` tensors
-        against their plain versions, K4 with a non-zero extrapolation on
+        launches counted from 0); then every kernel route of both sweeps
+        against its plain version on the very tensors it was timed on (K4
+        and K5 at the ``crop`` shapes, K5 on the ``stage`` P4 map, K1 at the
+        ``stage`` 7² and 14² poolings), K4 with a non-zero extrapolation on
         out-of-range and inverted boxes, and the gradient of
         ``crop_and_resize_fused`` on the card against the CPU."""
         cuda_build.launches.clear()
         crop_rows = profile_roi.crop(batch=8, boxes=1024, size=256, reps=5, device="cuda")
-        stage_rows = profile_roi.stage(batch=8, boxes=1000, size=1024, reps=5, device="cuda")
+        with Recorder(roi_ops, "roi_align_fwd") as stage_k1:
+            stage_rows = profile_roi.stage(batch=8, boxes=1000, size=1024, reps=5, device="cuda")
         launches = {k: cuda_build.launches[k]
                     for k in ("crop_and_resize_grouped", "crop_and_resize_grouped_mm")}
         log("ROI_SINGLE LAUNCHES " + json.dumps(launches))
@@ -935,16 +955,42 @@ def main() -> int:
             for r in rows:
                 log(f"  {r['route']:64s} {r['dtype']:8s} {r['ms']:.4f} ms")
         require(all(v >= 1 for v in launches.values()), f"K4/K5 launches {launches}")
-        route_ms = {r["route"].split(" ")[0]: r["ms"] for r in crop_rows}
+        route = {r["route"].split(" ")[0]: r for r in crop_rows}
+        plains = {"crop_and_resize_grouped": roi_ops.crop_and_resize_grouped_plain,
+                  "crop_and_resize_grouped_mm": roi_ops.crop_and_resize_grouped_mm_plain}
 
-        image, boxes = profile_roi.crop_inputs(8, 1024, 256, "cuda")
+        def held(row):
+            """The row's kernel result against its plain version, both on the
+            tensors the sweep timed."""
+            with torch.no_grad():
+                got = row["fn"](*row["args"])
+                want = plains[row["fn"].__name__](*row["args"])
+            torch.cuda.synchronize()
+            return float((got - want).abs().max())
+
+        # K5 and K1 at the stage sweep's shapes
+        stage_k5 = next(r for r in stage_rows if "(K5)" in r["route"])
+        stage_err = held(stage_k5)
+        log(f"  {stage_k5['route']}: err {stage_err:.3g} against its plain version")
+        require(stage_err <= 1e-5, f"K5 differs from its plain version by {stage_err} on P4")
+        k1_err = 0.0
+        for crop_s in (7, 14):
+            args, kwargs = next(c for c in stage_k1.calls if tuple(c[0][4]) == (crop_s, crop_s))
+            with torch.no_grad():
+                got = roi_ops.roi_align_fwd(*args, **kwargs)
+                want = roi_ops.multilevel_gather_plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            k1_err = max(k1_err, e)
+            log(f"  multilevel RoIAlign {crop_s}x{crop_s} (K1), stage sweep: err {e:.3g} "
+                f"against its plain version")
+        del stage_k1, got, want
+        require(k1_err <= 1e-5, f"K1 differs from its plain version by {k1_err} in the stage sweep")
+        fold_err("roi_align_fwd", k1_err)
+
+        image, boxes, crop = route["crop_and_resize_grouped"]["args"]
         g = torch.Generator(device="cuda").manual_seed(7)
         wild = (torch.rand((8, 256, 4), device="cuda", generator=g) * 1.8 - 0.4).contiguous()
-        crop = (7, 7)
-        cases = [("crop_and_resize_grouped", roi_ops.crop_and_resize_grouped,
-                  roi_ops.crop_and_resize_grouped_plain, (boxes, crop), "roi_align.py:339"),
-                 ("crop_and_resize_grouped_mm", roi_ops.crop_and_resize_grouped_mm,
-                  roi_ops.crop_and_resize_grouped_mm_plain, (boxes, crop), "roi_align.py:507")]
         # least bytes: the distinct tap rows that valid samples read, the
         # boxes, the crops written once; operations: per value the y-lerp of
         # two tap columns (3 each) and the 2-tap x product (4)
@@ -959,24 +1005,27 @@ def main() -> int:
         nbytes = rows * c * 4 + boxes.numel() * 4 + out_values * 4
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = out_values * K45_OPS_PER_VALUE / H100_FP32_OPS_PER_S * 1e3
-        for name, kernel, plain, args, line in cases:
-            got, want = kernel(image, *args), plain(image, *args)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            p_ms = cuda_ms(torch, lambda: plain(image, *args), 2)
-            log(f"  {name}: err {err:.3g}, {route_ms[name]:.4f} ms, plain {p_ms:.4f} ms, "
-                f"grid_sample {route_ms['F.grid_sample']:.4f} ms; bound {nbytes} bytes "
+        lib_ms = route["F.grid_sample"]["ms"]
+        for name, line in (("crop_and_resize_grouped", "roi_align.py:339"),
+                           ("crop_and_resize_grouped_mm", "roi_align.py:507")):
+            r = route[name]
+            err = held(r)
+            p_ms = cuda_ms(torch, lambda: plains[name](*r["args"]), 2)
+            log(f"  {name}: err {err:.3g}, {r['ms']:.4f} ms, plain {p_ms:.4f} ms, "
+                f"grid_sample {lib_ms:.4f} ms; bound {nbytes} bytes "
                 f"({rows} tap rows) -> {t_bytes:.6f} ms, {out_values * K45_OPS_PER_VALUE} fp32 "
                 f"ops -> {t_ops:.6f} ms")
             require(err <= 1e-5, f"{name} differs from its plain version by {err}")
+            if name == "crop_and_resize_grouped_mm":
+                err = max(err, stage_err)
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": "feature_intertwiner_tpu_torch/csrc/crop_and_resize.cu",
                 "replaces": f"feature_intertwiner_tpu/ops/{line}",
-                "launches": launches[name], "max_abs_err": err, "ms": route_ms[name],
+                "launches": launches[name], "max_abs_err": err, "ms": r["ms"],
                 "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": route_ms["F.grid_sample"]})
+                "library_ms": lib_ms})
         for crop_w in ((7, 7), (1, 1), (5, 9)):
             got = roi_ops.crop_and_resize_grouped(image, wild, crop_w, -1.5)
             want = roi_ops.crop_and_resize_grouped_plain(image, wild, crop_w, -1.5)
@@ -1009,19 +1058,18 @@ def main() -> int:
     # 10. the window probe K6 ---------------------------------------------------------
     def window_probe():
         """The ``window`` sweep of tools/profile_roi.py (launches counted from
-        0), then each size's K6 against its plain version on the sweep's own
-        map and origins, relative to the windows' sums of magnitudes."""
+        0), then each size's K6 against its plain version on the map and
+        origins the sweep timed, relative to the windows' sums of magnitudes."""
         from feature_intertwiner_tpu_torch.ops.window_sum import window_sum, window_sum_plain
 
         cuda_build.launches.clear()
         rows = profile_roi.window(batch=8, size=256, boxes=4096, reps=5, device="cuda")
         launches = cuda_build.launches["window_sum"]
-        img, cases = profile_roi.window_cases(8, 256, 4096, "cuda")
-        by_route = {r["route"]: r for r in rows}
+        k6_rows = [r for r in rows if r["fn"] is window_sum]
         err, abs_err, ms, plain_ms, nbytes, ops = 0.0, 0.0, 0.0, 0.0, 0, 0
-        for sy, sx, o in cases:
-            r = by_route[f"window_sum (K6) {sy}x{sx}"]
-            got, want = window_sum(img, o, sy, sx), window_sum_plain(img, o, sy, sx)
+        for r in k6_rows:
+            img, o, sy, sx = r["args"]
+            got, want = r["fn"](*r["args"]), window_sum_plain(*r["args"])
             mag = window_sum_plain(img.abs(), o, sy, sx)
             torch.cuda.synchronize()
             e = float(((got - want).abs() / mag.clamp_min(1e-30)).max())
@@ -1046,7 +1094,8 @@ def main() -> int:
             if r["route"].startswith("row_gather"):
                 log(f"  {r['route']}: {r['ms']:.4f} ms, {r['GB/s']:.1f} GB/s of {r['bytes']} bytes")
         log(f"WINDOW LAUNCHES {launches}")
-        require(launches >= len(cases), f"window_sum launched {launches} times")
+        require(len(k6_rows) == 7 and launches >= len(k6_rows),
+                f"window_sum launched {launches} times over {len(k6_rows)} sizes")
         require(err <= 1e-5, f"window_sum differs from its plain version by {err} relative")
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = ops / H100_FP32_OPS_PER_S * 1e3
@@ -1064,7 +1113,8 @@ def main() -> int:
     def eval_path():
         """``test_model`` with the flagship model (seeded, tempered weights)
         over 16 synthetic images on the card, its launches counted from 0:
-        per batch of TEST.BATCH_SIZE images K1 twice and K2 at least twice.
+        per batch of TEST.BATCH_SIZE images K1 twice and K2 at least twice,
+        each call then held against its plain version on the same tensors.
         Then a small model evaluates the same way on the card and on the CPU
         (fed the card's proposals): the same detections and stats."""
         import contextlib
@@ -1099,7 +1149,9 @@ def main() -> int:
         torch.cuda.synchronize()
         batches = math.ceil(data.num_images / ecfg.TEST.BATCH_SIZE)
         cuda_build.launches.clear()
-        stats, segm, results, wall = evaluate(model, ecfg, data, "flagship")
+        with Recorder(roi_ops, "roi_align_fwd") as roi_rec, \
+                Recorder(nms_ops, "nms_alive") as nms_rec:
+            stats, segm, results, wall = evaluate(model, ecfg, data, "flagship")
         launches = {k: cuda_build.launches[k] for k in ("roi_align_fwd", "nms_alive")}
         log(f"EVAL LAUNCHES {json.dumps(launches)} over {batches} batches of "
             f"{ecfg.TEST.BATCH_SIZE}; {len(results)} detections on {data.num_images} images; "
@@ -1110,6 +1162,24 @@ def main() -> int:
         require(launches["nms_alive"] >= 2 * batches, f"K2 launches {launches}")
         require(len(results) > 0 and all(math.isfinite(r["score"]) for r in results),
                 "no detections, or a non-finite score")
+        k1_err, mism = 0.0, 0
+        with torch.inference_mode():
+            for args, kwargs in roi_rec.calls:
+                got = roi_ops.roi_align_fwd(*args, **kwargs)
+                want = roi_ops.multilevel_gather_plain(*args, **kwargs)
+                k1_err = max(k1_err, float((got - want).abs().max()))
+            for args, kwargs in nms_rec.calls:
+                got = nms_ops.nms_alive(*args, **kwargs)
+                mism += int((got != nms_ops.greedy_alive_sorted_plain(*args, **kwargs)).sum())
+        torch.cuda.synchronize()
+        log(f"EVAL kernels against their plain versions on the eval path's tensors: "
+            f"roi_align_fwd err {k1_err:.3g} over {len(roi_rec.calls)} calls "
+            f"(n={[int(a[1].shape[0]) for a, _ in roi_rec.calls]}), nms_alive {mism} "
+            f"mismatches over {len(nms_rec.calls)} calls")
+        require(k1_err <= 1e-5 and mism == 0, "K1 or K2 differs from its plain version in eval")
+        fold_err("roi_align_fwd", k1_err)
+        fold_err("nms_alive", float(mism > 0))
+        del roi_rec, nms_rec
         chunk = [data.load_image(i) for i in range(ecfg.TEST.BATCH_SIZE)]
         t0 = time.perf_counter()
         detect(model, chunk, ecfg)

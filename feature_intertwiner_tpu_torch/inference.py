@@ -128,12 +128,12 @@ def detect(model: InterNet, images: Sequence[np.ndarray], cfg,
     """Images (H×W×3 arrays) in, per-image detections out: ``rois``
     [n, 4] int32 pixel boxes, ``class_ids``, ``scores`` and ``masks`` (a
     full-size binary mask per detection, or None). ``min_dim``/``max_dim``
-    mold at another scale than the config's, for a model built for it
-    (``InterNet.at_image_size``)."""
+    mold at another scale than the config's; the model then runs at
+    ``max_dim``² (``InterNet.forward_inference``'s ``image_size``)."""
     device = next(model.parameters()).device
     molded, windows = mold_inputs(images, cfg, device, min_dim, max_dim)
     with torch.inference_mode():
-        out = model.forward_inference(molded, windows, with_masks=with_masks)
+        out = model.forward_inference(molded, windows, with_masks=with_masks, image_size=max_dim)
         dets = out["detections"].cpu().numpy()
         masks = out["masks"].cpu().numpy() if with_masks else None
     wins = windows.cpu().numpy()

@@ -18,7 +18,6 @@ the backbone stages inside), ``rpn``, ``dev_roi``, ``classifier`` and
 
 from __future__ import annotations
 
-import copy
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -128,6 +127,7 @@ class InterNet(nn.Module):
         self._anchor_spec = (tuple(anchor_scales), tuple(anchor_ratios), tuple(strides),
                              anchor_stride)
         self.register_buffer("anchors", self._anchors(image_size), persistent=False)
+        self._scale_anchors: Dict[tuple, torch.Tensor] = {}
         self.register_buffer("bbox_std", torch.tensor(bbox_std, dtype=torch.float32),
                              persistent=False)
 
@@ -136,21 +136,16 @@ class InterNet(nn.Module):
         shapes = [[int(math.ceil(image_size / s))] * 2 for s in strides]
         return torch.from_numpy(generate_pyramid_anchors(scales, ratios, shapes, strides, stride))
 
-    def at_image_size(self, image_size: int) -> "InterNet":
-        """This model for images molded to ``image_size``² (multi-scale
-        testing, the JAX package's ``model.clone(image_size=...)``): the same
-        modules and parameters, with that size's anchors and RoI level
-        assignment."""
+    def anchors_for(self, image_size: int) -> torch.Tensor:
+        """The anchors of images molded to ``image_size``² (multi-scale
+        testing): the model's own buffer at its configured size, else built
+        once per size and device."""
         if image_size == self.image_size:
-            return self
-        other = copy.copy(self)
-        other._modules = dict(self._modules)
-        other._buffers = dict(self._buffers)
-        other._modules["dev_roi"] = copy.copy(self.dev_roi)
-        other.dev_roi.image_size = image_size
-        other.image_size = image_size
-        other._buffers["anchors"] = self._anchors(image_size).to(self.anchors.device)
-        return other
+            return self.anchors
+        key = (image_size, self.anchors.device)
+        if key not in self._scale_anchors:
+            self._scale_anchors[key] = self._anchors(image_size).to(self.anchors.device)
+        return self._scale_anchors[key]
 
     @classmethod
     def from_config(cls, cfg) -> "InterNet":
@@ -198,42 +193,47 @@ class InterNet(nn.Module):
             dev_big_feat_detach=cfg.DEV.BIG_FEAT_DETACH,
         )
 
-    def _propose(self, rpn_probs, rpn_deltas, count: int) -> torch.Tensor:
+    def _propose(self, rpn_probs, rpn_deltas, count: int,
+                 image_size: Optional[int] = None) -> torch.Tensor:
+        size = image_size or self.image_size
         return proposal_layer(
-            rpn_probs.float(), rpn_deltas.float(), self.anchors, self.bbox_std,
-            (self.image_size, self.image_size),
+            rpn_probs.float(), rpn_deltas.float(), self.anchors_for(size), self.bbox_std,
+            (size, size),
             pre_nms_limit=self.pre_nms_limit, proposal_count=count,
             nms_threshold=self.rpn_nms_threshold)
 
-    def first_stage(self, images: torch.Tensor) -> Tuple[List[torch.Tensor], ...]:
+    def first_stage(self, images: torch.Tensor,
+                    image_size: Optional[int] = None) -> Tuple[List[torch.Tensor], ...]:
         """images [B, S, S, 3] NHWC -> (pyramid [P2..P6] NCHW, rpn_probs
-        [B, A, 2], rpn_deltas [B, A, 4], proposals [B, R, 4] normalised)."""
+        [B, A, 2], rpn_deltas [B, A, 4], proposals [B, R, 4] normalised).
+        ``image_size`` is S where it is not the configured size."""
         pyramid = self.fpn(images.permute(0, 3, 1, 2))
         _, rpn_probs, rpn_deltas = run_rpn_over_pyramid(self.rpn, pyramid)
-        proposals = self._propose(rpn_probs, rpn_deltas, self.post_nms_inference)
+        proposals = self._propose(rpn_probs, rpn_deltas, self.post_nms_inference, image_size)
         return pyramid, rpn_probs, rpn_deltas, proposals
 
     def second_stage(self, feats: List[torch.Tensor], proposals: torch.Tensor,
-                     windows: torch.Tensor,
-                     with_masks: bool = True) -> Dict[str, torch.Tensor]:
+                     windows: torch.Tensor, with_masks: bool = True,
+                     image_size: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """P2..P5 (NCHW) and proposals -> {detections [B, M, 6],
         masks [B, M, 28, 28]} (masks: each detection's own class)."""
         b, r, _ = proposals.shape
+        size = image_size or self.image_size
         maps = self.dev_roi.pooling_maps(feats)
-        pooled = self.dev_roi.pool(maps, proposals, self.pool_size)
+        pooled = self.dev_roi.pool(maps, proposals, self.pool_size, size)
         _, probs, bbox, _ = self.classifier(pooled)
         detections, _, _ = detection_layer(
             proposals, probs.reshape(b, r, self.num_classes),
             bbox.reshape(b, r, self.num_classes, 4), windows.float(),
-            self.bbox_std, (self.image_size, self.image_size),
+            self.bbox_std, (size, size),
             max_instances=self.det_max_instances,
             nms_threshold=self.det_nms_threshold,
             min_confidence=self.det_min_confidence)
         if not with_masks:
             return {"detections": detections}
 
-        det_boxes = detections[..., :4] / float(self.image_size)
-        masks = self.mask(self.dev_roi.pool(maps, det_boxes, self.mask_pool_size))
+        det_boxes = detections[..., :4] / float(size)
+        masks = self.mask(self.dev_roi.pool(maps, det_boxes, self.mask_pool_size, size))
         mh, mw = self.mask_shape
         masks = masks.reshape(b, self.det_max_instances, mh, mw, self.num_classes)
         # each detection's own class, selected on the device
@@ -242,11 +242,15 @@ class InterNet(nn.Module):
         return {"detections": detections, "masks": masks}
 
     def forward_inference(self, images: torch.Tensor, windows: torch.Tensor,
-                          with_masks: bool = True) -> Dict[str, torch.Tensor]:
+                          with_masks: bool = True,
+                          image_size: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """images [B, S, S, 3] molded NHWC; windows [B, 4] pixel
-        (y1, x1, y2, x2) of each un-padded image."""
-        pyramid, _, _, proposals = self.first_stage(images)
-        return self.second_stage(pyramid[:4], proposals, windows, with_masks)
+        (y1, x1, y2, x2) of each un-padded image. ``image_size`` is S for
+        images molded to another size than the configured one (multi-scale
+        testing, the JAX package's ``model.clone(image_size=...)``): that
+        size's anchors, clipping and RoI levels, the same parameters."""
+        pyramid, _, _, proposals = self.first_stage(images, image_size)
+        return self.second_stage(pyramid[:4], proposals, windows, with_masks, image_size)
 
     forward = forward_inference
 

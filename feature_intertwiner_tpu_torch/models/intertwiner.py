@@ -157,14 +157,17 @@ class Dev(nn.Module):
         return [m.permute(0, 2, 3, 1).contiguous() for m in maps]
 
     def pool(self, maps: Sequence[torch.Tensor], rois: torch.Tensor,
-             crop: int) -> torch.Tensor:
-        """rois [B, R, 4] normalised -> pooled [B·R, crop, crop, C]."""
+             crop: int, image_size: Optional[int] = None) -> torch.Tensor:
+        """rois [B, R, 4] normalised -> pooled [B·R, crop, crop, C], each
+        RoI on the level its size in an ``image_size``² image (default the
+        configured size) assigns."""
         b, r, _ = rois.shape
         flat = rois.reshape(-1, 4)
         box_idx = torch.arange(b, dtype=torch.int32, device=rois.device)
         box_idx = box_idx.repeat_interleave(r)
+        size = image_size or self.image_size
         return multilevel_crop_and_resize(
-            maps, flat, box_idx, (crop, crop), (self.image_size, self.image_size),
+            maps, flat, box_idx, (crop, crop), (size, size),
             assign_base=self.assign_base)
 
     def last_op(self, x: torch.Tensor) -> torch.Tensor:

@@ -28,12 +28,15 @@ The JAX scripts ran bfloat16 maps; K4 and K5 take float32 until the port
 has bfloat16 maps, and each line names the dtype it used. Times are CUDA
 events on the card (mean of ``--reps`` calls after one warm-up) and the host
 clock with ``--device cpu``, where the kernels' plain versions run; each
-table names its device.
+table names its device. Each row of a sweep also holds the function it
+timed (``fn``) and the arguments it timed it on (``args``), so that a
+caller can check those very results.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -99,6 +102,16 @@ def crop_inputs(batch: int, boxes: int, size: int, device, seed: int = 0):
     return image.to(device), torch.from_numpy(random_boxes(rng, (batch, boxes))).to(device)
 
 
+def timed_rows(routes, reps: int, device: torch.device, dtype: str) -> List[Dict[str, object]]:
+    """One row per (name, fn, args) route: its mean ms, ``fn`` and ``args``."""
+    rows = []
+    with torch.no_grad():
+        for name, fn, args in routes:
+            rows.append({"route": name, "dtype": dtype, "fn": fn, "args": args,
+                         "ms": time_ms(lambda: fn(*args), reps, device)})
+    return rows
+
+
 def crop(batch: int = 8, boxes: int = 1024, size: int = 256, reps: int = 5,
          device=None, crop_size=(7, 7)) -> List[Dict[str, object]]:
     """The ``crop`` table: one row per route, with its ms."""
@@ -106,24 +119,19 @@ def crop(batch: int = 8, boxes: int = 1024, size: int = 256, reps: int = 5,
     image, grouped = crop_inputs(batch, boxes, size, dev)
     flat = grouped.reshape(-1, 4)
     idx = torch.arange(batch, dtype=torch.int32, device=dev).repeat_interleave(boxes)
-    nchw = image.permute(0, 3, 1, 2)
     grid = box_grid(flat, crop_size, batch)
+    grid_sample = functools.partial(F.grid_sample, mode="bilinear", padding_mode="zeros",
+                                    align_corners=True)
     routes = [
-        ("crop_and_resize (K1, one level)",
-         lambda: roi_ops.crop_and_resize(image, flat, idx, crop_size)),
-        ("crop_and_resize_grouped (K4)",
-         lambda: roi_ops.crop_and_resize_grouped(image, grouped, crop_size)),
-        ("crop_and_resize_grouped_mm (K5)",
-         lambda: roi_ops.crop_and_resize_grouped_mm(image, grouped, crop_size)),
-        ("F.grid_sample (yardstick)",
-         lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
-                               align_corners=True)),
+        ("crop_and_resize (K1, one level)", roi_ops.crop_and_resize,
+         (image, flat, idx, crop_size)),
+        ("crop_and_resize_grouped (K4)", roi_ops.crop_and_resize_grouped,
+         (image, grouped, crop_size)),
+        ("crop_and_resize_grouped_mm (K5)", roi_ops.crop_and_resize_grouped_mm,
+         (image, grouped, crop_size)),
+        ("F.grid_sample (yardstick)", grid_sample, (image.permute(0, 3, 1, 2), grid)),
     ]
-    rows = []
-    with torch.no_grad():
-        for name, fn in routes:
-            rows.append({"route": name, "dtype": "float32", "ms": time_ms(fn, reps, dev)})
-    return rows
+    return timed_rows(routes, reps, dev, "float32")
 
 
 def stage_inputs(batch: int, boxes: int, size: int, device, seed: int = 0):
@@ -149,21 +157,18 @@ def stage(batch: int = 32, boxes: int = 1000, size: int = 1024, reps: int = 5,
     cut = boxes // 128 * 128
     p4_boxes = flat.reshape(batch, boxes, 4)[:, :cut].contiguous()
     routes = [(f"multilevel RoIAlign {c}x{c} (K1), {boxes} per image",
-               lambda c=c: roi_ops.multilevel_crop_and_resize(maps, flat, idx, (c, c), (size, size)))
+               roi_ops.multilevel_crop_and_resize, (maps, flat, idx, (c, c), (size, size)))
               for c in (7, 14)]
     routes += [
         (f"classifier product [{n}, {7 * 7 * CHANNELS}] x [{7 * 7 * CHANNELS}, 1024]",
-         lambda: torch.matmul(x, wmat)),
-        (f"raw 4-corner row gather ({gidx.numel()} rows)", lambda: pyramid[gidx]),
+         torch.matmul, (x, wmat)),
+        (f"raw 4-corner row gather ({gidx.numel()} rows)", torch.Tensor.__getitem__,
+         (pyramid, gidx)),
     ]
     if cut:
         routes.append((f"crop_and_resize_grouped_mm (K5) on P4 {size // 16}², {cut} per image",
-                       lambda: roi_ops.crop_and_resize_grouped_mm(maps[2], p4_boxes, (7, 7))))
-    rows = []
-    with torch.no_grad():
-        for name, fn in routes:
-            rows.append({"route": name, "dtype": "float32", "ms": time_ms(fn, reps, dev)})
-    return rows
+                       roi_ops.crop_and_resize_grouped_mm, (maps[2], p4_boxes, (7, 7))))
+    return timed_rows(routes, reps, dev, "float32")
 
 
 def window_origins(rng: np.random.RandomState, n: int, batch: int, size: int, sy: int,
@@ -207,21 +212,17 @@ def window(batch: int = 8, size: int = 256, boxes: int = 4096, reps: int = 5, de
     img, cases = window_cases(batch, size, boxes, dev, sizes)
     rng = np.random.RandomState(2)
     item = img.element_size()
-    rows = []
-    for sy, sx, o in cases:
-        ms = time_ms(lambda: window_sum(img, o, sy, sx), reps, dev)
-        nbytes = boxes * sy * sx * CHANNELS * item
-        rows.append({"route": f"window_sum (K6) {sy}x{sx}", "window": [sy, sx],
-                     "dtype": "bfloat16", "bytes": nbytes, "ms": ms,
-                     "GB/s": nbytes / ms / 1e6})
+    routes = [(f"window_sum (K6) {sy}x{sx}", window_sum, (img, o, sy, sx), sy * sx)
+              for sy, sx, o in cases]
     for r in GATHER_ROWS:
         o = np.stack([rng.randint(0, batch, boxes), rng.randint(0, size - 8, boxes),
                       rng.randint(0, size - 8, boxes)], axis=1).astype(np.int32)
-        o = torch.from_numpy(o).to(dev)
-        ms = time_ms(lambda: row_gather_checksum(img, o, r), reps, dev)
-        nbytes = boxes * r * CHANNELS * item
-        rows.append({"route": f"row_gather_checksum {r} rows", "dtype": "bfloat16",
-                     "bytes": nbytes, "ms": ms, "GB/s": nbytes / ms / 1e6})
+        routes.append((f"row_gather_checksum {r} rows", row_gather_checksum,
+                       (img, torch.from_numpy(o).to(dev), r), r))
+    rows = timed_rows([route[:3] for route in routes], reps, dev, "bfloat16")
+    for row, (_, _, _, pixels) in zip(rows, routes):
+        row["bytes"] = boxes * pixels * CHANNELS * item
+        row["GB/s"] = row["bytes"] / row["ms"] / 1e6
     return rows
 
 

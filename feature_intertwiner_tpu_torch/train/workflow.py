@@ -212,28 +212,29 @@ def fuse_multiscale(per_scale, max_instances: int, thresh: float):
     return (boxes[keep].astype(np.int32), cls[keep], scores[keep], [masks[i] for i in keep])
 
 
-def _detect_stream(cfg, val_dataset, image_ids: Sequence[int], eval_masks: bool, forms,
-                   combine):
-    """Inference in chunks of ``TEST.BATCH_SIZE`` images. ``forms`` are
-    (model, min_dim, max_dim): each chunk is decoded once and detected in
-    every form; ``combine`` reduces an image's per-form (boxes, class_ids,
-    scores, full_masks) list to one. Yields (index, image, boxes, class_ids,
-    scores, full_masks) in original-image pixels."""
+def _detect_stream(model, cfg, val_dataset, image_ids: Sequence[int], eval_masks: bool,
+                   dims, combine):
+    """Inference in chunks of ``TEST.BATCH_SIZE`` images. ``dims`` are
+    (min_dim, max_dim) scales, None for the config's: each chunk is decoded
+    once and detected at every scale; ``combine`` reduces an image's
+    per-scale (boxes, class_ids, scores, full_masks) list to one. Yields
+    (index, image, boxes, class_ids, scores, full_masks) in original-image
+    pixels."""
     bs = max(1, int(cfg.TEST.BATCH_SIZE))
     for start in range(0, len(image_ids), bs):
         chunk = image_ids[start:start + bs]
         images = [val_dataset.load_image(int(i)) for i in chunk]
-        per_form = [detect(model, images, cfg, with_masks=eval_masks, min_dim=lo, max_dim=hi)
-                    for model, lo, hi in forms]
+        per_scale = [detect(model, images, cfg, with_masks=eval_masks, min_dim=lo, max_dim=hi)
+                    for lo, hi in dims]
         for k, idx in enumerate(chunk):
             per_image = [(r[k]["rois"], r[k]["class_ids"], r[k]["scores"], r[k]["masks"])
-                         for r in per_form]
+                         for r in per_scale]
             yield (idx, images[k], *combine(per_image))
 
 
 def _detect_images(model, cfg, val_dataset, image_ids, eval_masks: bool):
     """One scale, the config's: detections pass through unchanged."""
-    yield from _detect_stream(cfg, val_dataset, image_ids, eval_masks, [(model, None, None)],
+    yield from _detect_stream(model, cfg, val_dataset, image_ids, eval_masks, [(None, None)],
                               combine=lambda per: per[0])
 
 
@@ -243,13 +244,13 @@ def _detect_images_multiscale(model, cfg, val_dataset, image_ids, eval_masks: bo
     config's aspect of min to max dim), fused per image with cross-scale
     per-class NMS."""
     ratio = cfg.DATA.IMAGE_MIN_DIM / cfg.DATA.IMAGE_MAX_DIM
-    forms = [(model.at_image_size(int(s)), int(round(s * ratio)), int(s)) for s in scales]
+    dims = [(int(round(s * ratio)), int(s)) for s in scales]
 
     def combine(per_image):
         return fuse_multiscale(per_image, cfg.TEST.DET_MAX_INSTANCES,
                                cfg.TEST.MULTI_SCALE_NMS_THRESHOLD)
 
-    yield from _detect_stream(cfg, val_dataset, image_ids, eval_masks, forms, combine)
+    yield from _detect_stream(model, cfg, val_dataset, image_ids, eval_masks, dims, combine)
 
 
 def cache_path(cfg, epoch: int, n_images: int, eval_masks: bool) -> str:

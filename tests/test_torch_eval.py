@@ -348,10 +348,10 @@ def test_test_model_multiscale_and_unported_options(evaluated):
         path = workflow.cache_path(cfg, 4, 2, False)
         assert path.endswith("det_result_ep0004_n2_ms128-96.json") and os.path.exists(path)
         assert stats.shape == (12,)
-        small = model.at_image_size(96)
-        assert small.fpn is model.fpn and small.image_size == 96 and model.image_size == 128
-        assert small.anchors.shape[0] < model.anchors.shape[0]
-        assert small.dev_roi.image_size == 96 and model.dev_roi.image_size == 128
+        # the 96² scale ran on 96² anchors, and left the model at its own size
+        small = model.anchors_for(96)
+        assert small.shape[0] < model.anchors.shape[0] and model.anchors_for(128) is model.anchors
+        assert model.image_size == 128 and model.dev_roi.image_size == 128
     finally:
         cfg.TEST.MULTI_SCALE = []
     for key, value in (("DTYPE", "bfloat16"), ("SAVE_IM", True)):
