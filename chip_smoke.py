@@ -34,10 +34,21 @@ Phases, each of which must pass:
    checkpoint. Then the step time per stage (median of 5), the peak memory
    and one 'all' step's device time by kernel family;
 7. kernel_roi_align_bwd: the RoIAlign backward replayed on the last train
-   step's cotangents, within 1e-5 of its plain version relative to the
-   largest gradient and bit-equal over two launches, timed beside its plain
-   version, its bound and grid_sample's backward; the RoIAlign forward on
-   that step's five poolings, within 1e-5 of its plain version and timed;
+   step's cotangents, then on two crowds at the train step's shapes (800
+   slots of which 740 are the zero box; 200 distinct boxes of one image
+   around one object), at 7² and 14²: each within 1e-5 of its plain version
+   relative to the largest gradient, bit-equal over two launches, its work
+   plan equal to the plain plan, timed beside its plain version, its bytes
+   bound and grid_sample's backward; per train step it must beat
+   grid_sample's backward. Then the train step's calls and the crowds
+   timed over the kernel's two split constants, and the per-pass device
+   time of the two calls; the RoIAlign forward on that
+   step's five poolings, within 1e-5 of its plain version and timed;
+   bwd_sweep: the ``bwd`` sweep of ``tools/profile_roi.py`` (B=8, 200
+   random boxes per image over P2-P5 of 1024², 7² and 14²), K3 alone and
+   under K1 through autograd held against the plain backward on the timed
+   tensors, K3's per-pass device time and its time over its split
+   threshold;
 8. reference: a small model runs on the card and on the CPU (plain
    versions) from the same weights and inputs; the pyramid, and the
    detections of the second stage fed the same proposals, must agree; then
@@ -99,6 +110,9 @@ EPS32 = 2.0 ** -23              # float32 machine epsilon
 # the RoIAlign gradient per valid sample and channel: a = g ly and g - a,
 # then per tap row p lx and p - p lx, and the four adds into the map
 ROI_BWD_OPS_PER_VALUE = 2 + 4 + 4
+# the passes of csrc/roi_align_bwd.cu, by kernel name, for its breakdown
+BWD_PASSES = {p: (f"roi_align_bwd_{p}",)
+              for p in ("taps", "bin", "count", "scan", "list", "accumulate", "fold")}
 # The synthetic training set of the train path (data/synthetic.py): 1024²
 # canvases, so that molding neither scales nor pads them, with up to 24
 # instances of 30-512 px each, so that the random model's proposals meet
@@ -334,7 +348,7 @@ def main() -> int:
         from feature_intertwiner_tpu_torch.ops import cuda_build
         from feature_intertwiner_tpu_torch.ops import nms as nms_ops
         from feature_intertwiner_tpu_torch.ops import roi_align as roi_ops
-        from feature_intertwiner_tpu_torch.tools.profile_roi import box_grid
+        from feature_intertwiner_tpu_torch.tools import profile_roi
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
         return 2
@@ -471,7 +485,7 @@ def main() -> int:
             # yardstick: one grid_sample over P2 for every box of the call
             p2 = feats[0].permute(0, 3, 1, 2)
             n = boxes.shape[0]
-            grid = box_grid(boxes, crop, p2.shape[0])
+            grid = profile_roi.box_grid(boxes, crop, p2.shape[0])
             l_ms = cuda_ms(torch, lambda: torch.nn.functional.grid_sample(
                 p2, grid, mode="bilinear", padding_mode="zeros", align_corners=True), 20)
             nbytes, rows, n_ops = k1_work(torch, roi_ops, feats, boxes, bidx, lidx, crop)
@@ -734,50 +748,157 @@ def main() -> int:
 
     phase("train_path", train_path)
 
+    def bwd_bytes(g, shapes):
+        """K3's least bytes: g read once, the boxes and indices, every
+        level's gradient written once."""
+        return g.numel() * 4 + g.shape[0] * 24 + sum(4 * math.prod(s) for s in shapes)
+
+    def grid_sample_bwd_ms(shapes, boxes, crop, g, images):
+        """grid_sample's backward into a P2 of ``images`` images for every
+        box of a call (boxes in image order, as many per image)."""
+        _, h2, w2, c = shapes[0]
+        p2 = torch.zeros((images, h2, w2, c), device="cuda")
+        args = profile_roi.grid_sample_backward_args([p2], boxes, crop, g)
+        return cuda_ms(torch, lambda: profile_roi.grid_sample_grad(*args), 20)
+
+    def bwd_errors(got, g, shapes, boxes, bidx, lidx, crop):
+        """A K3 result against its plain version: (largest gradient, error
+        against the plain version in float64, the exact sum, relative to
+        it; the same against the plain version in float32; the float32
+        plain version's own error against float64). The float32 plain
+        version sums a crowded cell with float atomics in no fixed order."""
+        want = roi_ops.multilevel_gather_bwd_plain(g.double(), shapes, boxes, bidx, lidx, crop)
+        want32 = roi_ops.multilevel_gather_bwd_plain(g, shapes, boxes, bidx, lidx, crop)
+        torch.cuda.synchronize()
+        top = max(float(w.abs().max()) for w in want)
+
+        def err(xs, ys):
+            return max(float((x.double() - y.double()).abs().max()) for x, y in zip(xs, ys))
+
+        scale = max(top, 1e-30)
+        return top, err(got, want), err(got, want) / scale, err(got, want32) / scale, \
+            err(want32, want) / scale
+
+    def check_bwd(label, g, shapes, boxes, bidx, lidx, crop, images):
+        """One K3 call within 1e-5 of the largest gradient of its plain
+        version in float64 (beside its distance to the float32 plain
+        version), two launches bit-equal, its plan equal to the plain plan;
+        timed beside its plain version, its bytes bound and grid_sample's
+        backward. Returns its numbers."""
+        got = roi_ops.roi_align_bwd(g, shapes, boxes, bidx, lidx, crop)
+        plan = dict(roi_ops.last_bwd_plan)
+        again = roi_ops.roi_align_bwd(g, shapes, boxes, bidx, lidx, crop)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        top, a_err, rel, rel32, plain32 = bwd_errors(got, g, shapes, boxes, bidx, lidx, crop)
+        del got, again
+        plain_plan = roi_ops.bwd_work_plan(shapes, boxes, bidx, lidx, crop)
+        k_ms = cuda_ms(torch, lambda: roi_ops.roi_align_bwd(g, shapes, boxes, bidx, lidx, crop),
+                       20)
+        p_ms = cuda_ms(torch, lambda: roi_ops.multilevel_gather_bwd_plain(
+            g, shapes, boxes, bidx, lidx, crop), 3)
+        l_ms = grid_sample_bwd_ms(shapes, boxes, crop, g, images)
+        nbytes = bwd_bytes(g, shapes)
+        b_ms = nbytes / H100_BYTES_PER_S * 1e3
+        log(f"  roi_align_bwd {label} n={boxes.shape[0]} crop={crop}: rel err {rel:.3g} "
+            f"against the float64 plain version (max |grad| {top:.4g}; against the float32 "
+            f"plain version {rel32:.3g}, which is {plain32:.3g} from float64), "
+            f"two launches bit-equal {same}, {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, grid_sample backward {l_ms:.4f} ms, bound {b_ms:.6f} ms "
+            f"({nbytes} bytes); work items {plan['items']}, largest chunk count "
+            f"{plan['max_chunks']}, partial tiles {plan['partials']} over "
+            f"{plan['multi_tiles']} tiles")
+        require(same, f"two launches of the RoIAlign backward differ ({label})")
+        require(rel <= 1e-5, f"RoIAlign backward differs from its plain version by {rel} ({label})")
+        require(all(plan[k] == plain_plan[k] for k in plan),
+                f"the kernel's plan {plan} is not the plain plan {plain_plan} ({label})")
+        return dict(abs=a_err, ms=k_ms, plain_ms=p_ms, lib_ms=l_ms, bytes=nbytes)
+
+    def crowd_cases(shapes):
+        """The two crowds at the train step's shapes, as (label, boxes,
+        box indices, levels, images): (i) 800 slots of 4 images, 740 of
+        them the zero box (the last 185 of each image's 200); (ii) 200
+        distinct boxes of image 0 jittered around one object."""
+        b = shapes[0][0]
+        g = torch.Generator(device="cuda").manual_seed(11)
+        n = 200 * b
+        boxes = torch.zeros((n, 4), device="cuda")
+        yx = torch.rand((b, 15, 2), device="cuda", generator=g) * 0.7
+        hw = torch.rand((b, 15, 2), device="cuda", generator=g) * 0.25 + 0.02
+        real = torch.cat([yx, yx + hw], -1)
+        boxes.view(b, 200, 4)[:, :15] = real
+        idx = torch.arange(b, dtype=torch.int32, device="cuda").repeat_interleave(200)
+        obj = torch.tensor([0.40, 0.35, 0.52, 0.50], device="cuda")
+        cluster = (obj + torch.randn((200, 4), device="cuda", generator=g) * 0.01).clamp(0, 1)
+        cases = []
+        for label, bx, bi, images in (("crowd (i) zero-padded slots", boxes, idx, b),
+                                      ("crowd (ii) cluster on one object", cluster,
+                                       torch.zeros(200, dtype=torch.int32, device="cuda"), 1)):
+            lvl = (roi_ops.assign_fpn_level(bx, (1024, 1024)) - 2).contiguous()
+            cases.append((label, bx.contiguous(), bi, lvl, images))
+        require(int((boxes.abs().sum(1) == 0).sum()) == 740, "crowd (i) needs 740 zero boxes")
+        require(cluster.unique(dim=0).shape[0] == 200, "crowd (ii) needs 200 distinct boxes")
+        return cases
+
     def bwd_kernel():
-        """K3 replayed on the cotangents of the last train step."""
+        """K3 replayed on the cotangents of the last train step, then on the
+        two crowds at the train step's shapes, then over its two split
+        constants on both."""
         calls = train["bwd_calls"]
         require(len(calls) == 2, f"{len(calls)} recorded backward calls, want 2")
-        err, abs_err, ms, plain_ms, lib_ms, nbytes, ops = 0.0, 0.0, 0.0, 0.0, 0.0, 0, 0
+        abs_err, ms, plain_ms, lib_ms, nbytes, ops = 0.0, 0.0, 0.0, 0.0, 0, 0
         for args, kwargs in calls:
             g, shapes, boxes, bidx, lidx, crop = args[:6]
-            got = roi_ops.roi_align_bwd(g, shapes, boxes, bidx, lidx, crop)
-            again = roi_ops.roi_align_bwd(g, shapes, boxes, bidx, lidx, crop)
-            want = roi_ops.multilevel_gather_bwd_plain(g, shapes, boxes, bidx, lidx, crop)
-            torch.cuda.synchronize()
-            top = max(float(w.abs().max()) for w in want)
-            a_err = max(float((a - w).abs().max()) for a, w in zip(got, want))
-            e = a_err / max(top, 1e-30)
-            abs_err = max(abs_err, a_err)
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            require(same, "two launches of the RoIAlign backward differ")
-            err = max(err, e)
-            k_ms = cuda_ms(torch, lambda: roi_ops.roi_align_bwd(g, shapes, boxes, bidx, lidx, crop), 20)
-            p_ms = cuda_ms(torch, lambda: roi_ops.multilevel_gather_bwd_plain(
-                g, shapes, boxes, bidx, lidx, crop), 3)
-            # yardstick: grid_sample's backward into P2 for every box of the call
-            b, h2, w2, c = shapes[0]
-            p2 = torch.zeros((b, c, h2, w2), device="cuda", requires_grad=True)
-            n, (ch, cw) = boxes.shape[0], crop
-            grid = box_grid(boxes, crop, b)
-            with torch.enable_grad():
-                sampled = torch.nn.functional.grid_sample(
-                    p2, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
-            gout = g.reshape(b, n // b * ch, cw, c).permute(0, 3, 1, 2).contiguous()
-            l_ms = cuda_ms(torch, lambda: torch.autograd.grad(sampled, p2, gout, retain_graph=True), 20)
-            # least bytes: g read once, the boxes and indices, every level's
-            # gradient written once; operations: per valid sample and channel
-            # a = g ly, g - a, and each tap's weight and add
+            r = check_bwd("train step", g, shapes, boxes, bidx, lidx, crop, shapes[0][0])
+            abs_err = max(abs_err, r["abs"])
+            ms, plain_ms, lib_ms = ms + r["ms"], plain_ms + r["plain_ms"], lib_ms + r["lib_ms"]
+            nbytes += r["bytes"]
+            # operations: per valid sample and channel a = g ly, g - a, and
+            # each tap's weight and add
             _, _, _, valid = roi_ops.tap_rows(shapes, boxes, bidx, lidx, crop)
-            call_bytes = g.numel() * 4 + n * 24 + sum(4 * math.prod(s) for s in shapes)
-            nbytes += call_bytes
-            ops += int(valid.sum()) * c * ROI_BWD_OPS_PER_VALUE
-            ms, plain_ms, lib_ms = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
-            log(f"  roi_align_bwd n={n} crop={crop}: rel err {e:.3g} (max |grad| {top:.4g}), "
-                f"two launches bit-equal {same}, {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                f"grid_sample backward {l_ms:.4f} ms, {call_bytes} bytes")
-        if err > 1e-5:
-            raise AssertionError(f"RoIAlign backward differs from its plain version by {err}")
+            ops += int(valid.sum()) * shapes[0][3] * ROI_BWD_OPS_PER_VALUE
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = ops / H100_FP32_OPS_PER_S * 1e3
+        log(f"  roi_align_bwd per train step: {ms:.4f} ms over 2 launches, grid_sample backward "
+            f"{lib_ms:.4f} ms, plain {plain_ms:.4f} ms; bound: {nbytes} bytes -> {t_bytes:.6f} ms "
+            f"at {H100_BYTES_PER_S:.3g} B/s; {ops} fp32 ops -> {t_ops:.6f} ms")
+        require(ms < lib_ms, f"K3 per train step ({ms:.4f} ms) is not below grid_sample's "
+                f"backward ({lib_ms:.4f} ms)")
+        # the two calls' device time by pass, and their wall time
+        out = profile_by_family(torch, lambda: [roi_ops.roi_align_bwd(*a[:6]) for a, _ in calls],
+                                5, BWD_PASSES)
+        log_breakdown("BWD BREAKDOWN the train step's two calls", *out)
+
+        # the two crowds at the train step's shapes and crops
+        shapes = calls[0][0][1]
+        rng = torch.Generator(device="cuda").manual_seed(12)
+        cases = crowd_cases(shapes)
+        for label, boxes, bidx, lidx, images in cases:
+            for c in (7, 14):
+                g = torch.randn((boxes.shape[0], c, c, shapes[0][3]), device="cuda", generator=rng)
+                r = check_bwd(label, g, shapes, boxes, bidx, lidx, (c, c), images)
+                abs_err = max(abs_err, r["abs"])
+
+        # how the kernel splits a crowded tile: the train step's calls and
+        # the crowds at 14², over the boxes per work item and the count of
+        # boxes above which a tile is split
+        chunk0, split0 = roi_ops.BWD_CHUNK_BOXES, roi_ops.BWD_SPLIT_ABOVE
+        sweep = [(f"train step {tuple(a[5])}", a[:6]) for a, _ in calls]
+        for label, boxes, bidx, lidx, _ in cases:
+            g = torch.randn((boxes.shape[0], 14, 14, shapes[0][3]), device="cuda", generator=rng)
+            sweep.append((f"{label} (14, 14)", (g, shapes, boxes, bidx, lidx, (14, 14))))
+        try:
+            for chunk, split in ([(c, split0) for c in (1, 2, 4, 8, 16)]
+                                 + [(chunk0, s) for s in (0, 4, 8, 32, 64)]):
+                roi_ops.BWD_CHUNK_BOXES, roi_ops.BWD_SPLIT_ABOVE = chunk, split
+                times = [cuda_ms(torch, lambda: roi_ops.roi_align_bwd(*a), 10) for _, a in sweep]
+                log(f"  BWD_CHUNK_BOXES {chunk:2d} BWD_SPLIT_ABOVE {split:2d}: " + ", ".join(
+                    f"{label} {t:.4f} ms" for (label, _), t in zip(sweep, times))
+                    + f"; train step {times[0] + times[1]:.4f} ms")
+        finally:
+            roi_ops.BWD_CHUNK_BOXES, roi_ops.BWD_SPLIT_ABOVE = chunk0, split0
+        del sweep
+
         # K1 on the train path: the last step's five forward poolings, each
         # against its plain version and timed
         fwd_ms, fwd_bound, fwd_err = [], 0.0, 0.0
@@ -799,10 +920,6 @@ def main() -> int:
             f"bound {fwd_bound:.6f} ms; err {fwd_err:.3g} against its plain version")
         require(fwd_err <= 1e-5, f"K1 differs from its plain version by {fwd_err} in training")
         fold_err("roi_align_fwd", fwd_err)
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = ops / H100_FP32_OPS_PER_S * 1e3
-        log(f"  roi_align_bwd bound: {nbytes} bytes -> {t_bytes:.6f} ms at "
-            f"{H100_BYTES_PER_S:.3g} B/s; {ops} fp32 ops -> {t_ops:.6f} ms")
         kernels.append({
             "name": "roi_align_bwd", "route": "cuda",
             "source": "feature_intertwiner_tpu_torch/csrc/roi_align_bwd.cu",
@@ -812,10 +929,57 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms})
 
+    def bwd_sweep():
+        """The ``bwd`` sweep of tools/profile_roi.py (B=8, 200 boxes per
+        image over P2-P5 of 1024², 7² and 14²), then K3, alone and under K1
+        through autograd, against the plain backward on the very tensors it
+        timed."""
+        rows = profile_roi.bwd(batch=8, boxes=200, size=1024, reps=5, device="cuda")
+        log("BWD_SWEEP B=8, 200 boxes per image, P2-P5 of 1024², 256 channels:")
+        for r in rows:
+            log(f"  {r['route']:64s} {r['dtype']:8s} {r['ms']:.4f} ms")
+        k3 = next(r for r in rows if r["route"] == "roi_align_bwd (K3) 14x14")
+        out = profile_by_family(torch, lambda: k3["fn"](*k3["args"]), 5, BWD_PASSES)
+        log_breakdown("BWD BREAKDOWN the sweep's K3 14x14", *out)
+        # the spread-out case over the count of boxes above which a tile is split
+        split0 = roi_ops.BWD_SPLIT_ABOVE
+        try:
+            for split in (4, 8, 16, 32, 64):
+                roi_ops.BWD_SPLIT_ABOVE = split
+                times = [cuda_ms(torch, lambda: r["fn"](*r["args"]), 10)
+                         for r in rows if r["fn"] is roi_ops.roi_align_bwd]
+                log(f"  BWD_SPLIT_ABOVE {split:2d}: K3 7x7 {times[0]:.4f} ms, "
+                    f"14x14 {times[1]:.4f} ms")
+        finally:
+            roi_ops.BWD_SPLIT_ABOVE = split0
+        abs_err = 0.0
+        for r in rows:
+            if r["fn"] is roi_ops.roi_align_bwd:
+                g, shapes, boxes, bidx, lidx, crop = r["args"]
+            elif r["fn"] is profile_roi.roi_align_fwd_bwd:
+                maps, boxes, bidx, lidx, crop, g = r["args"]
+                shapes = [tuple(m.shape) for m in maps]
+            else:
+                continue
+            with torch.no_grad():
+                got = r["fn"](*r["args"])
+            plan = dict(roi_ops.last_bwd_plan)
+            top, a_err, rel, rel32, plain32 = bwd_errors(got, g, shapes, boxes, bidx, lidx, crop)
+            log(f"  {r['route']}: rel err {rel:.3g} against the float64 plain backward "
+                f"({rel32:.3g} against float32, itself {plain32:.3g} from float64); plan {plan}; "
+                f"bound {bwd_bytes(g, shapes) / H100_BYTES_PER_S * 1e3:.6f} ms")
+            require(rel <= 1e-5, f"{r['route']} differs from the plain backward by "
+                    f"{rel} of its largest gradient")
+            abs_err = max(abs_err, a_err)
+            del got
+        fold_err("roi_align_bwd", abs_err)
+
     if "train_path" not in failures:
         phase("kernel_roi_align_bwd", bwd_kernel)
     else:
         failures.append("kernel_roi_align_bwd (train path failed)")
+    train.clear()
+    phase("bwd_sweep", bwd_sweep)
 
     # 6. card against CPU on a small model ------------------------------------
     def reference():
@@ -932,8 +1096,6 @@ def main() -> int:
     phase("reference", reference)
 
     # 9. the single-level RoI pooling kernels K4 and K5 -----------------------------
-    from feature_intertwiner_tpu_torch.tools import profile_roi
-
     def roi_single():
         """The ``crop`` and ``stage`` sweeps of tools/profile_roi.py (their
         launches counted from 0); then every kernel route of both sweeps

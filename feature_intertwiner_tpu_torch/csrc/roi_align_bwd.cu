@@ -5,9 +5,10 @@
 // (reached from the custom VJP ops/roi_align_window.py::_hybrid_bwd). The
 // TPU kernel tiles each level into row strips, accumulates every box's
 // window in VMEM, spills the halo rows and folds them back with XLA; all of
-// that serves the TPU's DMA windows. The port's forward (roi_align_fwd.cu)
-// has no window, so this kernel is the exact transpose of its sampling for
-// every box.
+// that serves the TPU's DMA windows and its sequential grid, which carries a
+// strip's sum from box to box. The port's forward (roi_align_fwd.cu) has no
+// window, so this kernel is the exact transpose of its sampling for every
+// box.
 //
 // What it computes: given the cotangent g [N, ch, cw, C] of the crops, one
 // fp32 map d_l [B, H_l, W_l, C] per level, where every valid sample
@@ -20,26 +21,47 @@
 // forward wrote the constant extrapolation value there. The taps and lerps
 // come from roi_align_taps.cuh, the forward's own sampling.
 //
-// Design, deterministic and without atomics:
-//  1. roi_align_bwd_taps: one thread per box computes the taps of its ch
-//     sample rows and cw sample columns, and the rectangle of map cells
-//     they touch.
-//  2. roi_align_bwd_accumulate: one block per (level, image, map row, tile
-//     of 32 map columns), 256 threads, thread c owning channel c of the
-//     tile in shared memory (32 x C floats, 32 KB at C = 256). The block
-//     walks the boxes in index order (a ballot compacts those whose
-//     rectangle meets its tile), each box's sample rows in order and each
-//     row's samples in order, and adds their weighted cotangents into its
-//     tile. The order of every sum is fixed by the data, so two launches
-//     give the same bits. Each tile is written once, zeros included.
-//     A tile that many boxes meet is walked by one block alone (the
-//     zero-padded RoI slots of the second stage all sample cell (0, 0) of
-//     P2); so that this walk is not bound by the latency of one load at a
-//     time, the cotangents of up to kChunk samples of a row are loaded
-//     before they are added.
-// Bound on the card: bytes. g is read once (each sample row at most by the
-// blocks of its two tap rows) and every map is written once; the work is a
-// few flops per value.
+// Bound on the card: bytes. g is read once and every map is written once;
+// the work is a few flops per value. What stands in the way is the crowd:
+// the second stage's zero-padded RoI slots all sample cell (0, 0) of P2, and
+// a cluster of boxes around one object meets the same few map tiles, so a
+// design that gives each map tile to one block runs the crowded tile's
+// whole sum on one SM while the others idle. Here a crowded tile's boxes
+// are split across blocks and the partial tiles folded in a second pass.
+//
+// The tile is (level, image, map row, kTileW map columns). Two entry points,
+// each launching on the caller's stream (kernels named roi_align_bwd_<pass>):
+//  roi_align_bwd_plan
+//   1. taps: one thread per box packs the taps of its ch sample rows and cw
+//      sample columns, and the rectangle of map cells they touch.
+//   2. bin: one block per (level, image) lists its boxes in index order (a
+//      stable counting sort), so that later passes scan only those.
+//   3. count: one warp per tile counts the boxes whose rectangle meets it (a
+//      ballot scan of its bin).
+//   4. scan: one block gives each tile that more than `split` boxes meet
+//      ceil(count / chunk) work items (every other tile one), each tile of
+//      several items its slots of partial tiles, and each tile the start of
+//      its box list, by prefix sums; it writes the totals.
+//  The caller reads the five totals back to the host (the one device-to-host
+//  read per call) to size the grid and the scratch of the work lists and
+//  partial tiles, then
+//  roi_align_bwd
+//   5. list: one warp per tile writes its box list, in index order, and the
+//      tile of each of its work items.
+//   6. accumulate: one block per work item (tile, q) stages the taps of the
+//      boxes of ranks [q*chunk, (q+1)*chunk) of the tile's list (all of
+//      them, for a tile of one item) in shared
+//      memory and adds their weighted cotangents, box by box, row by row and
+//      sample by sample, into its tile in shared memory, thread c owning
+//      channel c. Along a box's sample row the x taps do not decrease, and
+//      every sample of a degenerate box taps one cell, so consecutive adds
+//      into one cell are summed in a register (in double) and added to
+//      shared memory once. A tile of one item writes the map directly, zeros
+//      included; the items of a tile of several write partial tiles.
+//   7. fold: one block per (tile of several items, map column) sums the
+//      partial tiles in item order (in double) into the map.
+// Every sum runs in an order fixed by the data, with no atomics, so two
+// launches give the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,41 +71,98 @@
 namespace {
 
 constexpr int kMaxLevels = 4;
-constexpr int kTileW = 32;     // map columns per block
-constexpr int kThreads = 256;  // threads per accumulate block
+constexpr int kTileW = 32;        // map columns per tile
+constexpr int kThreads = 256;     // threads per block of every pass but the scan
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 8;      // samples of a row whose cotangents load together
+constexpr int kScanThreads = 1024;
+constexpr int kLoad = 8;          // samples of a row whose cotangents load together
+constexpr int kMaxChunk = 64;     // most boxes one work item takes
+constexpr int kTotals = 5;        // the plan's totals, read by the host
 
 struct Levels {
   float* out[kMaxLevels];
   int height[kMaxLevels];
   int width[kMaxLevels];
-  int tiles[kMaxLevels];             // column tiles per map row
-  int block_start[kMaxLevels + 1];   // first accumulate block of each level
+  int tiles[kMaxLevels];            // column tiles per map row
+  int tile_start[kMaxLevels + 1];   // first tile of each level
 };
 
-// Per-box taps. info[k] = (level*batch + image, first row, last row,
-// first column << 16 | last column) of the cells its valid samples touch,
-// or key -1 when no sample of the box is valid.
-__global__ void roi_align_bwd_taps(Levels levels, int num_levels, int batch,
-                                   const float* __restrict__ boxes,
-                                   const int* __restrict__ box_idx,
-                                   const int* __restrict__ level_idx, int n,
-                                   int crop_h, int crop_w, float inv_h,
-                                   float inv_w, int4* __restrict__ info,
-                                   int* __restrict__ ylo, int* __restrict__ yhi,
-                                   int* __restrict__ yvalid,
-                                   float* __restrict__ ylerp,
-                                   int* __restrict__ xlo, int* __restrict__ xhi,
-                                   int* __restrict__ xvalid,
-                                   float* __restrict__ xlerp) {
+struct Tile {
+  int level, image, row, x0, tw;
+};
+
+__device__ __forceinline__ Tile decode_tile(const Levels& lv, int num_levels, int t) {
+  int l = 0;
+  while (l + 1 < num_levels && t >= lv.tile_start[l + 1]) ++l;
+  const int rel = t - lv.tile_start[l];
+  Tile d;
+  d.level = l;
+  d.x0 = (rel % lv.tiles[l]) * kTileW;
+  d.row = (rel / lv.tiles[l]) % lv.height[l];
+  d.image = rel / lv.tiles[l] / lv.height[l];
+  d.tw = min(kTileW, lv.width[l] - d.x0);
+  return d;
+}
+
+__device__ __forceinline__ float* map_row(const Levels& lv, const Tile& d, int channels) {
+  return lv.out[d.level] +
+         (((size_t)d.image * lv.height[d.level] + d.row) * lv.width[d.level] + d.x0) * channels;
+}
+
+// info = (level*batch + image or -1, first row, last row, first column << 16
+// | last column) of the cells a box's valid samples touch
+__device__ __forceinline__ bool meets(int4 f, int key, int row, int x0, int tw) {
+  const int c0 = f.w >> 16;
+  const int c1 = f.w & 0xffff;
+  return f.x == key && f.y <= row && row <= f.z && c0 < x0 + tw && c1 >= x0;
+}
+
+// Work items of a tile that `count` boxes meet: one, unless more than
+// `split` boxes meet it; then one per `chunk` of them.
+__device__ __forceinline__ int chunks_of(int count, int chunk, int split) {
+  return count <= split || count == 0 ? 1 : (count + chunk - 1) / chunk;
+}
+
+// Sum of v over the block (integers: the order does not matter). `red` holds
+// one int per warp.
+__device__ int block_sum(int v, int* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int s = 0;
+  for (int q = 0; q < (int)(blockDim.x >> 5); ++q) s += red[q];
+  return s;
+}
+
+// Writes `elems` floats of src (or zeros when src is null) to dst.
+__device__ __forceinline__ void store_tile(float* dst, const float* src, int elems) {
+  if ((elems & 3) == 0) {
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    for (int e = threadIdx.x; e < (elems >> 2); e += kThreads) {
+      d4[e] = src ? s4[e] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else {
+    for (int e = threadIdx.x; e < elems; e += kThreads) dst[e] = src ? src[e] : 0.0f;
+  }
+}
+
+// ytap/xtap[s] = (lo | hi << 16, or -1 for an invalid sample; the lerp's bits)
+__global__ void roi_align_bwd_taps(Levels lv, int num_levels, int batch,
+                         const float* __restrict__ boxes,
+                         const int* __restrict__ box_idx,
+                         const int* __restrict__ level_idx, int n, int crop_h,
+                         int crop_w, float inv_h, float inv_w,
+                         int4* __restrict__ info, int2* __restrict__ ytap,
+                         int2* __restrict__ xtap) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
   // The forward clamps its indices the same way.
   const int l = min(max(level_idx[k], 0), num_levels - 1);
   const int b = min(max(box_idx[k], 0), batch - 1);
-  const float h = (float)levels.height[l];
-  const float w = (float)levels.width[l];
+  const float h = (float)lv.height[l];
+  const float w = (float)lv.width[l];
   const float y1 = boxes[4 * k + 0];
   const float x1 = boxes[4 * k + 1];
   const float y2 = boxes[4 * k + 2];
@@ -91,11 +170,7 @@ __global__ void roi_align_bwd_taps(Levels levels, int num_levels, int batch,
   int r0 = 1 << 30, r1 = -1, c0 = 1 << 30, c1 = -1;
   for (int i = 0; i < crop_h; ++i) {
     const Taps t = corner_taps(sample_position(y1, y2, crop_h, inv_h, i, h), h);
-    const int s = k * crop_h + i;
-    ylo[s] = t.lo;
-    yhi[s] = t.hi;
-    yvalid[s] = t.valid;
-    ylerp[s] = t.lerp;
+    ytap[k * crop_h + i] = make_int2(t.valid ? (t.lo | (t.hi << 16)) : -1, __float_as_int(t.lerp));
     if (t.valid) {
       r0 = min(r0, t.lo);
       r1 = max(r1, t.hi);
@@ -103,11 +178,7 @@ __global__ void roi_align_bwd_taps(Levels levels, int num_levels, int batch,
   }
   for (int j = 0; j < crop_w; ++j) {
     const Taps t = corner_taps(sample_position(x1, x2, crop_w, inv_w, j, w), w);
-    const int s = k * crop_w + j;
-    xlo[s] = t.lo;
-    xhi[s] = t.hi;
-    xvalid[s] = t.valid;
-    xlerp[s] = t.lerp;
+    xtap[k * crop_w + j] = make_int2(t.valid ? (t.lo | (t.hi << 16)) : -1, __float_as_int(t.lerp));
     if (t.valid) {
       c0 = min(c0, t.lo);
       c1 = max(c1, t.hi);
@@ -117,56 +188,27 @@ __global__ void roi_align_bwd_taps(Levels levels, int num_levels, int batch,
   info[k] = make_int4(any ? l * batch + b : -1, r0, r1, any ? (c0 << 16) | c1 : 0);
 }
 
-__device__ __forceinline__ void add_pair(float* acc, int channels, int c,
-                                         float p, float lx, int xl, bool inl,
-                                         int xh, bool inh) {
-  if (inl) acc[xl * channels + c] += p - p * lx;
-  if (inh) acc[xh * channels + c] += p * lx;
-}
-
+// Block `key`: its boxes, in index order, at bins[bin_start[key]...].
 __global__ void __launch_bounds__(kThreads)
-roi_align_bwd_accumulate(Levels levels, int num_levels, int batch,
-                         int channels, int n, int crop_h, int crop_w,
-                         const float* __restrict__ g,
-                         const int4* __restrict__ info,
-                         const int* __restrict__ ylo,
-                         const int* __restrict__ yhi,
-                         const int* __restrict__ yvalid,
-                         const float* __restrict__ ylerp,
-                         const int* __restrict__ xlo,
-                         const int* __restrict__ xhi,
-                         const int* __restrict__ xvalid,
-                         const float* __restrict__ xlerp) {
-  extern __shared__ float acc[];  // [kTileW, channels]
-  __shared__ int list[kThreads];
+roi_align_bwd_bin(const int4* __restrict__ info, int n, int* __restrict__ bins,
+        int* __restrict__ bin_start, int* __restrict__ bin_count) {
+  __shared__ int red[kWarps];
   __shared__ int warp_hits[kWarps];
-
-  int l = 0;
-  while (l + 1 < num_levels && (int)blockIdx.x >= levels.block_start[l + 1]) ++l;
-  const int rel = (int)blockIdx.x - levels.block_start[l];
-  const int h = levels.height[l];
-  const int w = levels.width[l];
-  const int tile = rel % levels.tiles[l];
-  const int r = (rel / levels.tiles[l]) % h;
-  const int b = rel / levels.tiles[l] / h;
-  const int x0 = tile * kTileW;
-  const int tw = min(kTileW, w - x0);
-  const int key = l * batch + b;
-
-  for (int e = threadIdx.x; e < tw * channels; e += kThreads) acc[e] = 0.0f;
-  __syncthreads();
-
+  const int key = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  int before = 0, mine = 0;
+  for (int k = threadIdx.x; k < n; k += kThreads) {
+    const int x = info[k].x;
+    before += x >= 0 && x < key;
+    mine += x == key;
+  }
+  const int start = block_sum(before, red);
+  const int total = block_sum(mine, red);
+  int running = start;
   for (int base = 0; base < n; base += kThreads) {
     const int k = base + threadIdx.x;
-    bool hit = false;
-    if (k < n) {
-      const int4 f = info[k];
-      const int cmin = f.w >> 16;
-      const int cmax = f.w & 0xffff;
-      hit = f.x == key && f.y <= r && r <= f.z && cmin < x0 + tw && cmax >= x0;
-    }
+    const bool hit = k < n && info[k].x == key;
     const unsigned mask = __ballot_sync(0xffffffffu, hit);
     if (lane == 0) warp_hits[warp] = __popc(mask);
     __syncthreads();
@@ -175,138 +217,443 @@ roi_align_bwd_accumulate(Levels levels, int num_levels, int batch,
       offset += q < warp ? warp_hits[q] : 0;
       count += warp_hits[q];
     }
-    if (hit) list[offset + __popc(mask & ((1u << lane) - 1u))] = k;
-    __syncthreads();
+    if (hit) bins[running + offset + __popc(mask & ((1u << lane) - 1u))] = k;
+    running += count;
+    __syncthreads();  // warp_hits is rewritten next round
+  }
+  if (threadIdx.x == 0) {
+    bin_start[key] = start;
+    bin_count[key] = total;
+  }
+}
 
-    for (int q = 0; q < count; ++q) {
-      const int box = list[q];
+// One warp per tile: the boxes of its bin whose rectangle meets it.
+__global__ void __launch_bounds__(kThreads)
+roi_align_bwd_count(Levels lv, int num_levels, int batch, int total_tiles,
+          const int4* __restrict__ info, const int* __restrict__ bins,
+          const int* __restrict__ bin_start, const int* __restrict__ bin_count,
+          int* __restrict__ tile_count) {
+  const int t = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (t >= total_tiles) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const Tile d = decode_tile(lv, num_levels, t);
+  const int key = d.level * batch + d.image;
+  const int* list = bins + bin_start[key];
+  const int len = bin_count[key];
+  int count = 0;
+  for (int base = 0; base < len; base += 32) {
+    const bool hit = base + lane < len && meets(info[list[base + lane]], key, d.row, d.x0, d.tw);
+    count += __popc(__ballot_sync(0xffffffffu, hit));
+  }
+  if (lane == 0) tile_count[t] = count;
+}
+
+// One block: work items, partial-tile slots and box-list starts per tile by
+// prefix sums over the tiles; totals = (work items, partial slots, tiles of
+// several items, most items of one tile, (box, tile) pairs).
+__global__ void __launch_bounds__(kScanThreads)
+roi_align_bwd_scan(int total_tiles, int chunk, int split, const int* __restrict__ tile_count,
+         int* __restrict__ item_start, int* __restrict__ part_start,
+         int* __restrict__ list_start, int* __restrict__ multi_list,
+         int* __restrict__ totals) {
+  __shared__ int s_items[kScanThreads], s_parts[kScanThreads], s_multi[kScanThreads],
+      s_pairs[kScanThreads], s_max[kScanThreads];
+  const int tid = threadIdx.x;
+  const int per = (total_tiles + kScanThreads - 1) / kScanThreads;
+  const int lo = min(tid * per, total_tiles);
+  const int hi = min(lo + per, total_tiles);
+  int items = 0, parts = 0, multi = 0, pairs = 0, most = 0;
+  for (int t = lo; t < hi; ++t) {
+    const int n = tile_count[t];
+    const int c = chunks_of(n, chunk, split);
+    items += c;
+    pairs += n;
+    if (c > 1) {
+      parts += c;
+      ++multi;
+    }
+    most = max(most, c);
+  }
+  s_items[tid] = items;
+  s_parts[tid] = parts;
+  s_multi[tid] = multi;
+  s_pairs[tid] = pairs;
+  s_max[tid] = most;
+  for (int off = 1; off < kScanThreads; off <<= 1) {  // inclusive scans
+    __syncthreads();
+    const int a = tid >= off ? s_items[tid - off] : 0;
+    const int p = tid >= off ? s_parts[tid - off] : 0;
+    const int m = tid >= off ? s_multi[tid - off] : 0;
+    const int r = tid >= off ? s_pairs[tid - off] : 0;
+    const int x = tid >= off ? s_max[tid - off] : 0;
+    __syncthreads();
+    s_items[tid] += a;
+    s_parts[tid] += p;
+    s_multi[tid] += m;
+    s_pairs[tid] += r;
+    s_max[tid] = max(s_max[tid], x);
+  }
+  __syncthreads();
+  int ib = s_items[tid] - items, pb = s_parts[tid] - parts, mb = s_multi[tid] - multi;
+  int rb = s_pairs[tid] - pairs;
+  for (int t = lo; t < hi; ++t) {
+    const int n = tile_count[t];
+    const int c = chunks_of(n, chunk, split);
+    item_start[t] = ib;
+    list_start[t] = rb;
+    ib += c;
+    rb += n;
+    if (c > 1) {
+      part_start[t] = pb;
+      pb += c;
+      multi_list[mb++] = t;
+    } else {
+      part_start[t] = -1;
+    }
+  }
+  if (tid == kScanThreads - 1) {
+    totals[0] = s_items[tid];
+    totals[1] = s_parts[tid];
+    totals[2] = s_multi[tid];
+    totals[3] = s_max[tid];
+    totals[4] = s_pairs[tid];
+  }
+}
+
+// One warp per tile: its boxes, in index order, at pairs[list_start[t]...],
+// and its work items' tile.
+__global__ void __launch_bounds__(kThreads)
+roi_align_bwd_list(Levels lv, int num_levels, int batch, int total_tiles, int chunk, int split,
+         const int4* __restrict__ info, const int* __restrict__ bins,
+         const int* __restrict__ bin_start, const int* __restrict__ bin_count,
+         const int* __restrict__ tile_count, const int* __restrict__ item_start,
+         const int* __restrict__ list_start, int* __restrict__ item_tile,
+         int* __restrict__ pairs) {
+  const int t = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (t >= total_tiles) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const int count = tile_count[t];
+  for (int q = lane; q < chunks_of(count, chunk, split); q += 32) item_tile[item_start[t] + q] = t;
+  if (count == 0) return;
+  const Tile d = decode_tile(lv, num_levels, t);
+  const int key = d.level * batch + d.image;
+  const int* list = bins + bin_start[key];
+  const int len = bin_count[key];
+  int* out = pairs + list_start[t];
+  int rank = 0;
+  for (int base = 0; base < len; base += 32) {
+    const int k = base + lane < len ? list[base + lane] : -1;
+    const bool hit = k >= 0 && meets(info[k], key, d.row, d.x0, d.tw);
+    const unsigned mask = __ballot_sync(0xffffffffu, hit);
+    if (hit) out[rank + __popc(mask & ((1u << lane) - 1u))] = k;
+    rank += __popc(mask);
+  }
+}
+
+// Adds v to the register sum of `cell`, first moving a sum of another cell
+// into the shared tile.
+__device__ __forceinline__ void fold_add(float* acc, int channels, int c, int& cell,
+                                         double& sum, int x, float v) {
+  if (x == cell) {
+    sum += (double)v;
+    return;
+  }
+  if (cell >= 0) acc[cell * channels + c] += (float)sum;
+  cell = x;
+  sum = (double)v;
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
+roi_align_bwd_accumulate(Levels lv, int num_levels, int channels, int chunk, int split, int crop_h,
+                         int crop_w,
+               const float* __restrict__ g, const int2* __restrict__ ytap,
+               const int2* __restrict__ xtap, const int* __restrict__ tile_count,
+               const int* __restrict__ item_start, const int* __restrict__ part_start,
+               const int* __restrict__ list_start, const int* __restrict__ item_tile,
+               const int* __restrict__ pairs, float* __restrict__ partials) {
+  extern __shared__ float acc[];  // [kTileW, channels], then the staged taps
+  __shared__ int sbox[kMaxChunk];
+  int2* sy = reinterpret_cast<int2*>(acc + kTileW * channels);  // [boxes, crop_h]
+  int2* sx = sy + max(chunk, split) * crop_h;                    // [boxes, crop_w]
+
+  const int item = blockIdx.x;
+  const int t = item_tile[item];
+  const int q = item - item_start[t];
+  const int count = tile_count[t];
+  const Tile d = decode_tile(lv, num_levels, t);
+  const int elems = d.tw * channels;
+  float* dst = part_start[t] >= 0
+                   ? partials + ((size_t)part_start[t] + q) * kTileW * channels
+                   : map_row(lv, d, channels);
+  if (count == 0) {
+    store_tile(dst, nullptr, elems);
+    return;
+  }
+  // this item's boxes: ranks [q*per, q*per + nb) of the tile's list
+  const int per = count <= split ? count : chunk;
+  const int nb = min(per, count - q * per);
+  const int* list = pairs + list_start[t] + q * per;
+  if (threadIdx.x < nb) sbox[threadIdx.x] = list[threadIdx.x];
+  for (int e = threadIdx.x; e < nb * crop_h; e += kThreads) {
+    sy[e] = ytap[list[e / crop_h] * crop_h + e % crop_h];
+  }
+  for (int e = threadIdx.x; e < nb * crop_w; e += kThreads) {
+    sx[e] = xtap[list[e / crop_w] * crop_w + e % crop_w];
+  }
+  for (int e = threadIdx.x; e < elems; e += kThreads) acc[e] = 0.0f;
+  __syncthreads();
+
+  for (int c = threadIdx.x; c < channels; c += kThreads) {
+    int lo_cell = -1, hi_cell = -1;  // the cells of the two pending register sums
+    double lo_sum = 0.0, hi_sum = 0.0;
+    for (int u = 0; u < nb; ++u) {
+      const int2* xt = sx + u * crop_w;
       for (int i = 0; i < crop_h; ++i) {
-        const int s = box * crop_h + i;
-        if (!yvalid[s]) continue;
-        const bool top = ylo[s] == r;
-        const bool bot = yhi[s] == r;
+        const int2 yt = sy[u * crop_h + i];
+        if (yt.x < 0) continue;
+        const bool top = (yt.x & 0xffff) == d.row;
+        const bool bot = (yt.x >> 16) == d.row;
         if (!top && !bot) continue;
-        const float ly = ylerp[s];
-        const float* grow = g + (size_t)s * crop_w * channels;
-        for (int j0 = 0; j0 < crop_w; j0 += kChunk) {
-          // the chunk's samples that touch this tile: their cotangent rows
+        const float ly = __int_as_float(yt.y);
+        const float* grow = g + ((size_t)(sbox[u] * crop_h + i) * crop_w) * channels + c;
+        for (int j0 = 0; j0 < crop_w; j0 += kLoad) {
+          // the samples of this group that touch the tile: their cotangents
           // are loaded together, then added in sample order
-          int xl[kChunk], xh[kChunk];
-          float lx[kChunk];
           unsigned use = 0;
 #pragma unroll
-          for (int u = 0; u < kChunk; ++u) {
-            const int t = box * crop_w + j0 + u;
-            xl[u] = xh[u] = -1;
-            lx[u] = 0.0f;
-            if (j0 + u < crop_w && xvalid[t]) {
-              xl[u] = xlo[t] - x0;
-              xh[u] = xhi[t] - x0;
-              lx[u] = xlerp[t];
-              if ((xl[u] >= 0 && xl[u] < tw) || (xh[u] >= 0 && xh[u] < tw)) use |= 1u << u;
+          for (int v = 0; v < kLoad; ++v) {
+            const int j = j0 + v;
+            if (j < crop_w && xt[j].x >= 0) {
+              const unsigned xl = (unsigned)((xt[j].x & 0xffff) - d.x0);
+              const unsigned xh = (unsigned)((xt[j].x >> 16) - d.x0);
+              if (xl < (unsigned)d.tw || xh < (unsigned)d.tw) use |= 1u << v;
             }
           }
           if (!use) continue;
-          for (int c = threadIdx.x; c < channels; c += kThreads) {
-            float gv[kChunk];
+          float gv[kLoad];
 #pragma unroll
-            for (int u = 0; u < kChunk; ++u) {
-              gv[u] = (use >> u) & 1u ? __ldg(grow + (size_t)(j0 + u) * channels + c) : 0.0f;
+          for (int v = 0; v < kLoad; ++v) {
+            gv[v] = (use >> v) & 1u ? __ldg(grow + (size_t)(j0 + v) * channels) : 0.0f;
+          }
+#pragma unroll
+          for (int v = 0; v < kLoad; ++v) {
+            if (!((use >> v) & 1u)) continue;
+            const int2 x = xt[j0 + v];
+            const int xl = (x.x & 0xffff) - d.x0;
+            const int xh = (x.x >> 16) - d.x0;
+            const float lx = __int_as_float(x.y);
+            // the row's weight: top = g - a from its top tap row, bot = a
+            // from its bottom one, both when the two rows coincide
+            const float a = gv[v] * ly;
+            float p = top ? gv[v] - a : 0.0f;
+            if (bot) p = top ? p + a : a;
+            if ((unsigned)xl < (unsigned)d.tw) {
+              fold_add(acc, channels, c, lo_cell, lo_sum, xl, p - p * lx);
             }
-#pragma unroll
-            for (int u = 0; u < kChunk; ++u) {
-              if (!((use >> u) & 1u)) continue;
-              const bool inl = xl[u] >= 0 && xl[u] < tw;
-              const bool inh = xh[u] >= 0 && xh[u] < tw;
-              const float a = gv[u] * ly;
-              if (top) add_pair(acc, channels, c, gv[u] - a, lx[u], xl[u], inl, xh[u], inh);
-              if (bot) add_pair(acc, channels, c, a, lx[u], xl[u], inl, xh[u], inh);
+            if ((unsigned)xh < (unsigned)d.tw) {
+              fold_add(acc, channels, c, hi_cell, hi_sum, xh, p * lx);
             }
           }
         }
       }
     }
-    __syncthreads();  // list and warp_hits are rewritten next round
+    if (lo_cell >= 0) acc[lo_cell * channels + c] += (float)lo_sum;
+    if (hi_cell >= 0) acc[hi_cell * channels + c] += (float)hi_sum;
   }
+  __syncthreads();
+  store_tile(dst, acc, elems);
+}
 
-  float* dst = levels.out[l] + (((size_t)b * h + r) * w + x0) * channels;
-  for (int e = threadIdx.x; e < tw * channels; e += kThreads) dst[e] = acc[e];
+// Block (m, x): map column x0 + x of the m-th tile of several items, the sum
+// of its partial tiles in item order, in double.
+__global__ void __launch_bounds__(kThreads)
+roi_align_bwd_fold(Levels lv, int num_levels, int channels, int chunk, int split,
+         const int* __restrict__ multi_list, const int* __restrict__ tile_count,
+         const int* __restrict__ part_start, const float* __restrict__ partials) {
+  const int t = multi_list[blockIdx.x];
+  const Tile d = decode_tile(lv, num_levels, t);
+  const int x = blockIdx.y;
+  if (x >= d.tw) return;
+  const int items = chunks_of(tile_count[t], chunk, split);
+  const size_t slot = (size_t)kTileW * channels;
+  const float* src = partials + (size_t)part_start[t] * slot + (size_t)x * channels;
+  float* dst = map_row(lv, d, channels) + (size_t)x * channels;
+  for (int c = threadIdx.x; c < channels; c += kThreads) {
+    double s = src[c];
+#pragma unroll 8
+    for (int q = 1; q < items; ++q) s += src[q * slot + c];
+    dst[c] = (float)s;
+  }
+}
+
+// The levels' table; false when a shape is out of range.
+bool make_levels(void* const* out_ptrs, const int* heights, const int* widths,
+                 int num_levels, int batch, Levels* lv, int* total_tiles) {
+  if (num_levels < 1 || num_levels > kMaxLevels || batch < 1) return false;
+  *lv = Levels{};
+  long long tiles = 0;
+  for (int k = 0; k < num_levels; ++k) {
+    // taps pack as lo | hi << 16 in a non-negative int
+    if (heights[k] < 1 || widths[k] < 1 || heights[k] > 0x7fff || widths[k] > 0x7fff) {
+      return false;
+    }
+    lv->out[k] = out_ptrs ? static_cast<float*>(out_ptrs[k]) : nullptr;
+    lv->height[k] = heights[k];
+    lv->width[k] = widths[k];
+    lv->tiles[k] = (widths[k] + kTileW - 1) / kTileW;
+    lv->tile_start[k] = (int)tiles;
+    tiles += (long long)batch * heights[k] * lv->tiles[k];
+  }
+  if (tiles > 0x3fffffffLL) return false;
+  lv->tile_start[num_levels] = (int)tiles;
+  *total_tiles = (int)tiles;
+  return true;
+}
+
+// The planning scratch, in ints: info (4 n), ytap (2 n ch), xtap (2 n cw),
+// bins (n), bin_start and bin_count (one per key), tile_count, item_start,
+// part_start, list_start and multi_list (one per tile), totals (5, last).
+struct Scratch {
+  int4* info;
+  int2* ytap;
+  int2* xtap;
+  int *bins, *bin_start, *bin_count, *tile_count, *item_start, *part_start, *list_start,
+      *multi_list, *totals;
+};
+
+long long scratch_layout(int* base, int n, int crop_h, int crop_w, int keys, int tiles,
+                         Scratch* s) {
+  long long off = 0;
+  auto take = [&](long long count) {
+    int* p = base ? base + off : nullptr;
+    off += count;
+    return p;
+  };
+  Scratch v;
+  v.info = reinterpret_cast<int4*>(take(4LL * n));
+  v.ytap = reinterpret_cast<int2*>(take(2LL * n * crop_h));
+  v.xtap = reinterpret_cast<int2*>(take(2LL * n * crop_w));
+  v.bins = take(n);
+  v.bin_start = take(keys);
+  v.bin_count = take(keys);
+  v.tile_count = take(tiles);
+  v.item_start = take(tiles);
+  v.part_start = take(tiles);
+  v.list_start = take(tiles);
+  v.multi_list = take(tiles);
+  v.totals = take(kTotals);
+  if (s) *s = v;
+  return off;
 }
 
 }  // namespace
 
-// Scratch the caller allocates for `n` boxes (see roi_align_bwd below).
-extern "C" int roi_align_bwd_scratch_ints(int n, int crop_h, int crop_w) {
-  return 4 * n + 3 * n * crop_h + 3 * n * crop_w;
+// Ints of planning scratch for `n` boxes on these levels, or -1 when a
+// shape is out of range. Its last five ints are the plan's totals.
+extern "C" long long roi_align_bwd_scratch_ints(const int* heights, const int* widths,
+                                                int num_levels, int batch, int n,
+                                                int crop_h, int crop_w) {
+  Levels lv;
+  int tiles = 0;
+  if (n < 0 || crop_h < 1 || crop_w < 1 ||
+      !make_levels(nullptr, heights, widths, num_levels, batch, &lv, &tiles)) {
+    return -1;
+  }
+  return scratch_layout(nullptr, n, crop_h, crop_w, num_levels * batch, tiles, nullptr);
 }
 
-extern "C" int roi_align_bwd_scratch_floats(int n, int crop_h, int crop_w) {
-  return n * crop_h + n * crop_w;
+// Floats of the partial tiles for `partials` slots.
+extern "C" long long roi_align_bwd_partial_floats(int partials, int channels) {
+  return (long long)partials * kTileW * channels;
 }
 
-// out_ptrs/heights/widths: num_levels entries (host arrays), each level's
-// gradient a [batch, height, width, channels] float32 map in device memory,
-// contiguous, written whole by this call. g [n, crop_h, crop_w, channels]
-// float32 contiguous; boxes [n, 4] float32, box_idx and level_idx [n] int32
-// (0-based level). inv_h/inv_w: float32 1/(crop-1), as the forward got
-// them. scratch_i/scratch_f: device buffers of the sizes above, scratch_i
-// 16-byte aligned. Launches on `stream` and returns the first cudaError_t.
-extern "C" int roi_align_bwd(void* const* out_ptrs, const int* heights,
-                             const int* widths, int num_levels, int batch,
-                             int channels, const float* g,
-                             const float* boxes, const int* box_idx,
-                             const int* level_idx, int n, int crop_h,
-                             int crop_w, float inv_h, float inv_w,
-                             int* scratch_i, float* scratch_f, void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || batch < 1 ||
-      channels < 1 || crop_h < 1 || crop_w < 1 || n < 0) {
+// Passes 1-4. heights/widths: num_levels host ints; boxes [n, 4] float32,
+// box_idx and level_idx [n] int32 (0-based level) in device memory;
+// inv_h/inv_w: float32 1/(crop-1), as the forward got them; chunk (1 to 64)
+// and split (0 to 64): a tile that more than `split` boxes meet is split
+// into work items of `chunk` boxes; scratch: device ints of roi_align_bwd_scratch_ints,
+// 16-byte aligned. Writes the totals (work items, partial slots, tiles of
+// several items, most items of one tile, (box, tile) pairs) into the last
+// five ints of scratch and returns the first cudaError_t.
+extern "C" int roi_align_bwd_plan(const int* heights, const int* widths, int num_levels,
+                                  int batch, const float* boxes, const int* box_idx,
+                                  const int* level_idx, int n, int crop_h, int crop_w,
+                                  float inv_h, float inv_w, int chunk, int split,
+                                  int* scratch,
+                                  void* stream) {
+  Levels lv;
+  int tiles = 0;
+  if (n < 0 || crop_h < 1 || crop_w < 1 || chunk < 1 || chunk > kMaxChunk || split < 0 ||
+      split > kMaxChunk ||
+      !make_levels(nullptr, heights, widths, num_levels, batch, &lv, &tiles)) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = (size_t)kTileW * channels * sizeof(float);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  Levels levels = {};
-  long long blocks = 0;
-  for (int k = 0; k < num_levels; ++k) {
-    if (heights[k] < 1 || widths[k] < 1 || widths[k] > 0xffff) {
-      return (int)cudaErrorInvalidValue;
-    }
-    levels.out[k] = static_cast<float*>(out_ptrs[k]);
-    levels.height[k] = heights[k];
-    levels.width[k] = widths[k];
-    levels.tiles[k] = (widths[k] + kTileW - 1) / kTileW;
-    levels.block_start[k] = (int)blocks;
-    blocks += (long long)batch * heights[k] * levels.tiles[k];
-  }
-  levels.block_start[num_levels] = (int)blocks;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-
-  int4* info = reinterpret_cast<int4*>(scratch_i);
-  int* ylo = scratch_i + 4 * n;
-  int* yhi = ylo + n * crop_h;
-  int* yvalid = yhi + n * crop_h;
-  int* xlo = yvalid + n * crop_h;
-  int* xhi = xlo + n * crop_w;
-  int* xvalid = xhi + n * crop_w;
-  float* ylerp = scratch_f;
-  float* xlerp = scratch_f + n * crop_h;
-  cudaStream_t s = (cudaStream_t)stream;
-
+  const int keys = num_levels * batch;
+  Scratch s;
+  scratch_layout(scratch, n, crop_h, crop_w, keys, tiles, &s);
+  cudaStream_t st = (cudaStream_t)stream;
   if (n > 0) {
-    roi_align_bwd_taps<<<(n + 127) / 128, 128, 0, s>>>(
-        levels, num_levels, batch, boxes, box_idx, level_idx, n, crop_h,
-        crop_w, inv_h, inv_w, info, ylo, yhi, yvalid, ylerp, xlo, xhi, xvalid,
-        xlerp);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    roi_align_bwd_taps<<<(n + 127) / 128, 128, 0, st>>>(
+        lv, num_levels, batch, boxes, box_idx, level_idx, n, crop_h, crop_w, inv_h, inv_w,
+        s.info, s.ytap, s.xtap);
   }
+  roi_align_bwd_bin<<<keys, kThreads, 0, st>>>(s.info, n, s.bins, s.bin_start, s.bin_count);
+  roi_align_bwd_count<<<(tiles + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+      lv, num_levels, batch, tiles, s.info, s.bins, s.bin_start, s.bin_count, s.tile_count);
+  roi_align_bwd_scan<<<1, kScanThreads, 0, st>>>(tiles, chunk, split, s.tile_count,
+                                                s.item_start,
+                                                s.part_start, s.list_start, s.multi_list,
+                                                s.totals);
+  return (int)cudaGetLastError();
+}
+
+// Passes 5-7, after roi_align_bwd_plan on the same arguments and scratch.
+// out_ptrs: num_levels host pointers, each level's gradient a [batch,
+// height, width, channels] float32 map in device memory, contiguous, written
+// whole by this call; g [n, crop_h, crop_w, channels] float32 contiguous;
+// items, multi_tiles and pairs: the plan's first, third and fifth totals;
+// work: device ints, items + pairs of them; partials: device floats of
+// roi_align_bwd_partial_floats(second total), 16-byte aligned. Returns the
+// first cudaError_t.
+extern "C" int roi_align_bwd(void* const* out_ptrs, const int* heights, const int* widths,
+                             int num_levels, int batch, int channels, const float* g, int n,
+                             int crop_h, int crop_w, int chunk, int split, int* scratch,
+                             int items,
+                             int multi_tiles, int pairs, int* work, float* partials,
+                             void* stream) {
+  Levels lv;
+  int tiles = 0;
+  if (channels < 1 || n < 0 || crop_h < 1 || crop_w < 1 || chunk < 1 || chunk > kMaxChunk ||
+      split < 0 || split > kMaxChunk || items < 1 || multi_tiles < 0 || pairs < 0 ||
+      !make_levels(out_ptrs, heights, widths, num_levels, batch, &lv, &tiles)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // the tile, then the staged taps of up to max(chunk, split) boxes
+  const size_t smem = (size_t)kTileW * channels * sizeof(float) +
+                      (size_t)(chunk > split ? chunk : split) * (crop_h + crop_w) * sizeof(int2);
+  if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
+  Scratch s;
+  scratch_layout(scratch, n, crop_h, crop_w, num_levels * batch, tiles, &s);
+  int* item_tile = work;
+  int* lists = work + items;
+  cudaStream_t st = (cudaStream_t)stream;
+  roi_align_bwd_list<<<(tiles + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+      lv, num_levels, batch, tiles, chunk, split, s.info, s.bins, s.bin_start, s.bin_count,
+      s.tile_count, s.item_start, s.list_start, item_tile, lists);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        roi_align_bwd_accumulate, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    err = cudaFuncSetAttribute(roi_align_bwd_accumulate,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  roi_align_bwd_accumulate<<<(unsigned)blocks, kThreads, smem, s>>>(
-      levels, num_levels, batch, channels, n, crop_h, crop_w, g, info, ylo,
-      yhi, yvalid, ylerp, xlo, xhi, xvalid, xlerp);
+  roi_align_bwd_accumulate<<<items, kThreads, smem, st>>>(
+      lv, num_levels, channels, chunk, split, crop_h, crop_w, g, s.ytap, s.xtap, s.tile_count,
+      s.item_start, s.part_start, s.list_start, item_tile, lists, partials);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || multi_tiles == 0) return (int)err;
+  roi_align_bwd_fold<<<dim3(multi_tiles, kTileW), kThreads, 0, st>>>(
+      lv, num_levels, channels, chunk, split, s.multi_list, s.tile_count, s.part_start,
+      partials);
   return (int)cudaGetLastError();
 }

@@ -42,7 +42,8 @@ as those kernels do, with a true division and no fused multiply-add.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+import functools
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -268,16 +269,19 @@ def multilevel_gather_bwd_plain(
     The weights are those XLA's transpose of the lerps gives:
     ``a = g ly``, ``top = g - a``, ``bot = a``; ``tl += top - top lx``,
     ``tr += top lx``, ``bl += bot - bot lx``, ``br += bot lx``. Returns one
-    float32 gradient ``[B, H_l, W_l, C]`` per level of ``shapes``."""
+    gradient ``[B, H_l, W_l, C]`` per level of ``shapes``, float32, or
+    float64 for a float64 ``g`` (then every product and sum is taken in
+    float64: the exact sum to compare a kernel's rounding with)."""
     b, c = shapes[0][0], shapes[0][3]
     (tl, tr, bl, br), ly, lx, valid = tap_rows(
         shapes, boxes, box_indices, level_idx, crop_size)
-    g = torch.where(valid[..., None], g.float(), g.new_zeros((), dtype=torch.float32))
-    a = g * ly[:, :, None, None]
+    dtype = torch.float64 if g.dtype == torch.float64 else torch.float32
+    g = torch.where(valid[..., None], g.to(dtype), g.new_zeros((), dtype=dtype))
+    a = g * ly[:, :, None, None].to(dtype)
     top = g - a
-    lxb = lx[:, None, :, None]
+    lxb = lx[:, None, :, None].to(dtype)
     sizes = [s[1] * s[2] for s in shapes]
-    flat = torch.zeros((b * sum(sizes), c), dtype=torch.float32, device=g.device)
+    flat = torch.zeros((b * sum(sizes), c), dtype=dtype, device=g.device)
     for rows, vals in ((tl, top - top * lxb), (tr, top * lxb),
                        (bl, a - a * lxb), (br, a * lxb)):
         flat.index_add_(0, rows.reshape(-1), vals.reshape(-1, c))
@@ -305,7 +309,13 @@ def roi_align_bwd(
     (which replaces ``feature_intertwiner_tpu/ops/roi_align_window_bwd.py::
     _bwd_kernel``); on CPU tensors it runs
     :func:`multilevel_gather_bwd_plain`. Each launch adds one to
-    ``cuda_build.launches["roi_align_bwd"]``."""
+    ``cuda_build.launches["roi_align_bwd"]`` and leaves its plan (the totals
+    of :func:`bwd_work_plan`) in ``last_bwd_plan``.
+
+    The kernel plans on the card how it splits each map tile's boxes across
+    blocks, then reads the plan's five totals back to the host to size its
+    grid and its scratch: one device-to-host read per call, which waits for
+    the work queued before it."""
     shapes = [tuple(int(d) for d in s) for s in shapes]
     _check_pooling_args(shapes, boxes, box_indices, level_idx)
     b, c = shapes[0][0], shapes[0][3]
@@ -326,36 +336,125 @@ def roi_align_bwd(
     bidx = box_indices.to(torch.int32).contiguous()
     lidx = level_idx.to(torch.int32).contiguous()
     outs = [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
-    lib = cuda_build.load("roi_align_bwd")
-    sizes = []
-    for name in ("roi_align_bwd_scratch_ints", "roi_align_bwd_scratch_floats"):
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        sizes.append(fn(n, ch, cw))
-    scratch_i = torch.empty(max(sizes[0], 4), dtype=torch.int32, device=dev)
-    scratch_f = torch.empty(max(sizes[1], 1), dtype=torch.float32, device=dev)
-    fn = lib.roi_align_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                   ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib = _bwd_library()
     num = len(shapes)
     ptrs = (ctypes.c_void_p * num)(*[o.data_ptr() for o in outs])
     hs = (ctypes.c_int * num)(*[s[1] for s in shapes])
     ws = (ctypes.c_int * num)(*[s[2] for s in shapes])
+    size = lib.roi_align_bwd_scratch_ints(hs, ws, num, b, n, ch, cw)
+    if size < 0:
+        raise ValueError(f"roi_align_bwd: level shapes {shapes} out of the kernel's range")
+    scratch = torch.empty(size, dtype=torch.int32, device=dev)
+    chunk, split = BWD_CHUNK_BOXES, BWD_SPLIT_ABOVE
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ptrs, hs, ws, num, b, c, g.data_ptr(), boxes.data_ptr(),
-                 bidx.data_ptr(), lidx.data_ptr(), n, ch, cw, reciprocal(ch),
-                 reciprocal(cw), scratch_i.data_ptr(), scratch_f.data_ptr(),
-                 stream)
+        err = lib.roi_align_bwd_plan(hs, ws, num, b, boxes.data_ptr(), bidx.data_ptr(),
+                                     lidx.data_ptr(), n, ch, cw, reciprocal(ch),
+                                     reciprocal(cw), chunk, split, scratch.data_ptr(), stream)
+        cuda_build.check(err, "roi_align_bwd_plan")
+        items, partials, multi_tiles, max_chunks, pairs = scratch[-5:].tolist()
+        work = torch.empty(items + pairs, dtype=torch.int32, device=dev)
+        part = torch.empty(max(lib.roi_align_bwd_partial_floats(partials, c), 1),
+                           dtype=torch.float32, device=dev)
+        err = lib.roi_align_bwd(ptrs, hs, ws, num, b, c, g.data_ptr(), n, ch, cw, chunk, split,
+                                scratch.data_ptr(), items, multi_tiles, pairs, work.data_ptr(),
+                                part.data_ptr(), stream)
     cuda_build.check(err, "roi_align_bwd")
     cuda_build.launches["roi_align_bwd"] += 1
+    last_bwd_plan.clear()
+    last_bwd_plan.update(items=items, partials=partials, multi_tiles=multi_tiles,
+                         max_chunks=max_chunks, pairs=pairs)
     return outs
+
+
+# The backward kernel splits a map tile that more than BWD_SPLIT_ABOVE boxes
+# meet across blocks, one per BWD_CHUNK_BOXES of its boxes (both chosen on
+# the H100 by chip_smoke.py's sweep over the train step's calls and the
+# crowds; PERF.md).
+BWD_CHUNK_BOXES = 2
+BWD_SPLIT_ABOVE = 16
+# Map columns per tile of csrc/roi_align_bwd.cu (its kTileW).
+BWD_TILE_W = 32
+# The totals of the last CUDA call of roi_align_bwd's plan.
+last_bwd_plan: Dict[str, int] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    """``csrc/roi_align_bwd.cu``'s library with its entry points typed."""
+    lib = cuda_build.load("roi_align_bwd")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ints = ctypes.POINTER(ctypes.c_int)
+    lib.roi_align_bwd_scratch_ints.restype = ctypes.c_longlong
+    lib.roi_align_bwd_scratch_ints.argtypes = [ints, ints] + [i32] * 5
+    lib.roi_align_bwd_partial_floats.restype = ctypes.c_longlong
+    lib.roi_align_bwd_partial_floats.argtypes = [i32, i32]
+    lib.roi_align_bwd_plan.restype = i32
+    lib.roi_align_bwd_plan.argtypes = ([ints, ints, i32, i32, ptr, ptr, ptr] + [i32] * 3
+                                       + [f32, f32, i32, i32, ptr, ptr])
+    lib.roi_align_bwd.restype = i32
+    lib.roi_align_bwd.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ints, ints] + [i32] * 3
+                                  + [ptr] + [i32] * 5 + [ptr] + [i32] * 3 + [ptr] * 3)
+    return lib
+
+
+def bwd_work_plan(
+    shapes: Sequence[Sequence[int]],
+    boxes: torch.Tensor,
+    box_indices: torch.Tensor,
+    level_idx: torch.Tensor,
+    crop_size: Tuple[int, int],
+    chunk_boxes: int = None,
+    split_above: int = None,
+) -> Dict[str, int]:
+    """Plain version of the backward kernel's planning passes: how
+    ``csrc/roi_align_bwd.cu`` splits the work for these boxes.
+
+    A tile is (level, image, map row, ``BWD_TILE_W`` map columns); a box
+    meets it when the rectangle of the cells its valid samples tap covers
+    it. A tile that ``c > split_above`` boxes meet gets ``ceil(c /
+    chunk_boxes)`` work items, every other tile one (defaults
+    ``BWD_CHUNK_BOXES``, ``BWD_SPLIT_ABOVE``); a tile of several items gets
+    as many slots of partial tiles. Returns the totals the kernel reads
+    back: ``items``, ``partials`` (slots), ``multi_tiles`` (tiles of several
+    items), ``max_chunks`` (most items of one tile) and ``pairs`` (the
+    (box, tile) pairs of the tiles' box lists), and ``tiles``."""
+    chunk = int(chunk_boxes or BWD_CHUNK_BOXES)
+    split = int(BWD_SPLIT_ABOVE if split_above is None else split_above)
+    shapes = [tuple(int(d) for d in s) for s in shapes]
+    b, num = shapes[0][0], len(shapes)
+    ch, cw = (int(v) for v in crop_size)
+    dev = boxes.device
+    lvl = level_idx.to(torch.int64).clamp(0, num - 1)     # the kernel clamps as the forward
+    img = box_indices.to(torch.int64).clamp(0, b - 1)
+    hs = torch.tensor([float(s[1]) for s in shapes], device=dev)[lvl]
+    ws = torch.tensor([float(s[2]) for s in shapes], device=dev)[lvl]
+    y1, x1, y2, x2 = boxes.unbind(dim=1)
+    ty, by, _, vy = _corner_weights(_sample_positions(y1, y2, ch, hs), hs)
+    lx, rx, _, vx = _corner_weights(_sample_positions(x1, x2, cw, ws), ws)
+    far = 1 << 30
+    r0, r1 = torch.where(vy, ty, far).amin(1), torch.where(vy, by, -1).amax(1)
+    c0, c1 = torch.where(vx, lx, far).amin(1), torch.where(vx, rx, -1).amax(1)
+    hit = (r1 >= 0) & (c1 >= 0)
+    counts = []
+    for level, (_, h, w, _) in enumerate(shapes):
+        tiles = -(-w // BWD_TILE_W)
+        sel = hit & (lvl == level)
+        # +1/-1 at the corners of each box's tile rectangle, summed along
+        # rows and tile columns: the boxes that meet each tile
+        grid = torch.zeros((b, h + 1, tiles + 1), dtype=torch.int64, device=dev)
+        bi = img[sel]
+        ya, yb = r0[sel], r1[sel] + 1
+        xa, xb = c0[sel] // BWD_TILE_W, c1[sel] // BWD_TILE_W + 1
+        for y, x, sign in ((ya, xa, 1), (ya, xb, -1), (yb, xa, -1), (yb, xb, 1)):
+            grid.index_put_((bi, y, x), torch.full_like(bi, sign), accumulate=True)
+        counts.append(grid.cumsum(1).cumsum(2)[:, :h, :tiles].reshape(-1))
+    count = torch.cat(counts)
+    chunks = torch.where(count <= split, torch.ones_like(count), (count + chunk - 1) // chunk)
+    multi = chunks > 1
+    return {"tiles": count.numel(), "items": int(chunks.sum()),
+            "partials": int(chunks[multi].sum()), "multi_tiles": int(multi.sum()),
+            "max_chunks": int(chunks.max()), "pairs": int(count.sum())}
 
 
 class RoIAlign(torch.autograd.Function):

@@ -3,8 +3,9 @@
     python -m feature_intertwiner_tpu_torch.tools.profile_roi crop   [flags]
     python -m feature_intertwiner_tpu_torch.tools.profile_roi stage  [flags]
     python -m feature_intertwiner_tpu_torch.tools.profile_roi window [flags]
+    python -m feature_intertwiner_tpu_torch.tools.profile_roi bwd    [flags]
 
-The port of three measuring scripts of the JAX package:
+The port of four measuring scripts of the JAX package:
 
 - ``crop`` (``scripts/profile_pallas_ra.py``): single-level 7² crops of
   ``--boxes`` boxes per image from a ``--size``² map of 256 channels at batch
@@ -22,10 +23,16 @@ The port of three measuring scripts of the JAX package:
   over windows of 8² to 64² at ``--boxes`` random origins (default 4096) on
   a ``[--batch, --size, --size, 256]`` bfloat16 map (defaults 8, 256),
   against ``row_gather_checksum``, a plain gather of 196 and 784 rows per
-  box; bytes, ms and GB/s.
+  box; bytes, ms and GB/s;
+- ``bwd`` (``scripts/profile_window_bwd.py``): the RoIAlign gradient at
+  batch ``--batch`` with ``--boxes`` random boxes per image over P2-P5 of a
+  ``--size``² image (defaults 8, 200, 1024: 1600 boxes), 256 channels, at
+  7² and 14²: the backward kernel K3 alone, the forward K1 and K3 through
+  ``roi_align`` and autograd, the plain backward, and ``grid_sample``'s
+  backward into P2 for the same boxes as a yardstick.
 
-The JAX scripts ran bfloat16 maps; K4 and K5 take float32 until the port
-has bfloat16 maps, and each line names the dtype it used. Times are CUDA
+The JAX scripts ran bfloat16 maps; K1, K3, K4 and K5 take float32 until
+the port has bfloat16 maps, and each line names the dtype it used. Times are CUDA
 events on the card (mean of ``--reps`` calls after one warm-up) and the host
 clock with ``--device cpu``, where the kernels' plain versions run; each
 table names its device. Each row of a sweep also holds the function it
@@ -171,6 +178,70 @@ def stage(batch: int = 32, boxes: int = 1000, size: int = 1024, reps: int = 5,
     return timed_rows(routes, reps, dev, "float32")
 
 
+def bwd_inputs(batch: int, boxes: int, size: int, device, seed: int = 0):
+    """The ``bwd`` inputs of ``scripts/profile_window_bwd.py``: P2-P5 maps
+    ([B, size/4 ... size/32, 256] float32), ``B * boxes`` boxes clipped to
+    the image, sorted by image, and their FPN levels."""
+    maps, flat = stage_inputs(batch, boxes, size, device, seed)
+    flat = flat.clamp(max=1.0)
+    idx = torch.arange(batch, dtype=torch.int32, device=flat.device).repeat_interleave(boxes)
+    level = (roi_ops.assign_fpn_level(flat, (size, size)) - 2).clamp(0, 3)
+    return maps, flat, idx, level
+
+
+def roi_align_fwd_bwd(maps, boxes, idx, level, crop, g):
+    """K1 forward and K3 backward through ``roi_align`` and autograd: the
+    gradient of ``sum(crops * g)`` with respect to each map."""
+    with torch.enable_grad():
+        leaves = [m.detach().requires_grad_() for m in maps]
+        out = roi_ops.roi_align(leaves, boxes, idx, level, crop)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def grid_sample_grad(sampled: torch.Tensor, p2: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The backward of a recorded ``grid_sample`` into ``p2``."""
+    return torch.autograd.grad(sampled, p2, g, retain_graph=True)[0]
+
+
+def grid_sample_backward_args(maps, boxes, crop, g):
+    """(sampled, p2, g) for :func:`grid_sample_grad`: ``grid_sample`` of an
+    NCHW copy of P2 at every box's crop, recorded, and the cotangent laid
+    out as its output (boxes in image order)."""
+    b, h2, w2, c = maps[0].shape
+    n, (ch, cw) = boxes.shape[0], crop
+    with torch.enable_grad():
+        p2 = maps[0].permute(0, 3, 1, 2).contiguous().requires_grad_()
+        sampled = F.grid_sample(p2, box_grid(boxes, crop, b), mode="bilinear",
+                                padding_mode="zeros", align_corners=True)
+    gout = g.reshape(b, n // b * ch, cw, c).permute(0, 3, 1, 2).contiguous()
+    return sampled, p2, gout
+
+
+def bwd(batch: int = 8, boxes: int = 200, size: int = 1024, reps: int = 5,
+        device=None) -> List[Dict[str, object]]:
+    """The ``bwd`` table: per crop size, K3 alone, K1 + K3 through autograd,
+    the plain backward and ``grid_sample``'s backward."""
+    dev = resolve_device(device)
+    maps, flat, idx, level = bwd_inputs(batch, boxes, size, dev)
+    shapes = [tuple(m.shape) for m in maps]
+    rng = np.random.RandomState(1)
+    routes = []
+    for c in (7, 14):
+        crop = (c, c)
+        g = torch.from_numpy(rng.randn(flat.shape[0], c, c, CHANNELS).astype(np.float32)).to(dev)
+        routes += [
+            (f"roi_align_bwd (K3) {c}x{c}", roi_ops.roi_align_bwd,
+             (g, shapes, flat, idx, level, crop)),
+            (f"roi_align fwd+bwd (K1+K3) {c}x{c}", roi_align_fwd_bwd,
+             (maps, flat, idx, level, crop, g)),
+            (f"multilevel_gather_bwd_plain {c}x{c}", roi_ops.multilevel_gather_bwd_plain,
+             (g, shapes, flat, idx, level, crop)),
+            (f"grid_sample backward into P2 {c}x{c} (yardstick)", grid_sample_grad,
+             grid_sample_backward_args(maps, flat, crop, g)),
+        ]
+    return timed_rows(routes, reps, dev, "float32")
+
+
 def window_origins(rng: np.random.RandomState, n: int, batch: int, size: int, sy: int,
                    sx: int) -> np.ndarray:
     """[n, 3] int32 origins (b, y0, x0 // 8) of windows that fit the map,
@@ -242,15 +313,16 @@ def print_table(title: str, rows: List[Dict[str, object]], device) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("command", choices=["crop", "stage", "window"])
+    p.add_argument("command", choices=["crop", "stage", "window", "bwd"])
     p.add_argument("--batch", type=int, default=None)
     p.add_argument("--boxes", type=int, default=None,
-                   help="boxes per image (crop, stage) or windows (window)")
-    p.add_argument("--size", type=int, default=None, help="map (crop, window) or image (stage) side")
+                   help="boxes per image (crop, stage, bwd) or windows (window)")
+    p.add_argument("--size", type=int, default=None,
+                   help="map (crop, window) or image (stage, bwd) side")
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
-    fn = {"crop": crop, "stage": stage, "window": window}[args.command]
+    fn = {"crop": crop, "stage": stage, "window": window, "bwd": bwd}[args.command]
     kwargs = {k: v for k, v in (("batch", args.batch), ("boxes", args.boxes),
                                 ("size", args.size)) if v is not None}
     device = resolve_device(args.device)

@@ -196,7 +196,7 @@ def test_mm_channel_tile_fits_shared_memory():
 
 
 # --- tools/profile_roi.py ------------------------------------------------------------
-@pytest.mark.parametrize("command", ["crop", "stage", "window"])
+@pytest.mark.parametrize("command", ["crop", "stage", "window", "bwd"])
 def test_profile_roi_runs_small_on_the_cpu(command, capsys):
     rows = profile_roi.main([command, "--device", "cpu", "--batch", "2", "--boxes", "128",
                              "--size", "64", "--reps", "1"])
@@ -208,6 +208,18 @@ def test_profile_roi_runs_small_on_the_cpu(command, capsys):
         assert "(K4)" in routes and "(K5)" in routes and "grid_sample" in routes
     elif command == "stage":
         assert routes.count("(K1)") == 2 and "(K5) on P4 4², 128 per image" in routes
+    elif command == "bwd":
+        assert routes.count("K3)") == 4 and routes.count("(yardstick)") == 2
+        assert "multilevel_gather_bwd_plain 14x14" in routes
+        k3 = rows[0]["fn"](*rows[0]["args"])
+        both = rows[1]["fn"](*rows[1]["args"])
+        plain = rows[2]["fn"](*rows[2]["args"])
+        assert [tuple(d.shape) for d in k3] == [(2, 16, 16, 256), (2, 8, 8, 256), (2, 4, 4, 256),
+                                                 (2, 2, 2, 256)]
+        for a, b2, c in zip(k3, both, plain):
+            torch.testing.assert_close(a, c, rtol=0, atol=0)
+            torch.testing.assert_close(b2, c, rtol=0, atol=1e-5)
+        assert rows[3]["fn"](*rows[3]["args"]).shape == (2, 256, 16, 16)
     else:
         assert "(K6) 8x8" in routes and "(K6) 32x32" in routes and "(K6) 64x64" not in routes
         assert all(r["GB/s"] > 0 for r in rows)

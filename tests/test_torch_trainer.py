@@ -101,7 +101,7 @@ def test_trainer_runs_three_stages_and_resumes_mid_stage(tmp_path, monkeypatch):
     assert again.state.step == 6
 
 
-def test_validation_raises_until_the_eval_loop_is_ported(tmp_path):
+def test_validation_evaluates_at_the_end_of_a_stage(tmp_path):
     """The eval loop is ported: with ``TRAIN.DO_VALIDATION`` a stage ends
     with an evaluation of its last epoch when a validation set is given,
     and without one it skips it, as the JAX trainer does."""
