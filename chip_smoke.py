@@ -40,15 +40,13 @@ Phases, each of which must pass:
    relative to the largest gradient, bit-equal over two launches, its work
    plan equal to the plain plan, timed beside its plain version, its bytes
    bound and grid_sample's backward; per train step it must beat
-   grid_sample's backward. Then the train step's calls and the crowds
-   timed over the kernel's two split constants, and the per-pass device
-   time of the two calls; the RoIAlign forward on that
-   step's five poolings, within 1e-5 of its plain version and timed;
+   grid_sample's backward. Then the per-pass device time of the two
+   calls; the RoIAlign forward on that step's five poolings, within 1e-5 of
+   its plain version and timed;
    bwd_sweep: the ``bwd`` sweep of ``tools/profile_roi.py`` (B=8, 200
-   random boxes per image over P2-P5 of 1024², 7² and 14²), K3 alone and
-   under K1 through autograd held against the plain backward on the timed
-   tensors, K3's per-pass device time and its time over its split
-   threshold;
+   random boxes per image over P2-P5 of 1024², 7² and 14²), on the timed
+   tensors K3 held as above and K1 + K3 through autograd against the plain
+   backward and bit-equal over two runs; K3's per-pass device time;
 8. reference: a small model runs on the card and on the CPU (plain
    versions) from the same weights and inputs; the pyramid, and the
    detections of the second stage fed the same proposals, must agree; then
@@ -61,7 +59,8 @@ Phases, each of which must pass:
    7² and 14² poolings against their plain versions within 1e-5, K4 with
    extrapolation -1.5 on out-of-range and inverted boxes, and the gradient
    of ``crop_and_resize_fused`` on the card against the CPU's within 1e-5
-   of its largest value;
+   of its largest value, on the sweep's maps and on a 3-channel image of
+   odd width (map rows that are not 16-byte aligned);
 10. window_probe: the ``window`` sweep (K6 on a [8, 256, 256, 256] bf16 map
    at 4096 windows of 8x8 to 64x64), each size against its plain version
    on the timed map and origins within 1e-5 of the windows' sums of
@@ -779,20 +778,35 @@ def main() -> int:
         return top, err(got, want), err(got, want) / scale, err(got, want32) / scale, \
             err(want32, want) / scale
 
-    def check_bwd(label, g, shapes, boxes, bidx, lidx, crop, images):
+    def hold_bwd(label, g, shapes, boxes, bidx, lidx, crop):
         """One K3 call within 1e-5 of the largest gradient of its plain
         version in float64 (beside its distance to the float32 plain
-        version), two launches bit-equal, its plan equal to the plain plan;
-        timed beside its plain version, its bytes bound and grid_sample's
-        backward. Returns its numbers."""
-        got = roi_ops.roi_align_bwd(g, shapes, boxes, bidx, lidx, crop)
-        plan = dict(roi_ops.last_bwd_plan)
+        version), two launches bit-equal, its plan equal to the plain plan.
+        Returns its error against float64 and its plan."""
+        got, plan = roi_ops.roi_align_bwd_with_plan(g, shapes, boxes, bidx, lidx, crop)
         again = roi_ops.roi_align_bwd(g, shapes, boxes, bidx, lidx, crop)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         top, a_err, rel, rel32, plain32 = bwd_errors(got, g, shapes, boxes, bidx, lidx, crop)
         del got, again
         plain_plan = roi_ops.bwd_work_plan(shapes, boxes, bidx, lidx, crop)
+        log(f"  roi_align_bwd {label} n={boxes.shape[0]} crop={crop}: rel err {rel:.3g} "
+            f"against the float64 plain version (max |grad| {top:.4g}; against the float32 "
+            f"plain version {rel32:.3g}, which is {plain32:.3g} from float64), "
+            f"two launches bit-equal {same}; work items {plan['items']}, largest chunk count "
+            f"{plan['max_chunks']}, partial tiles {plan['partials']} over "
+            f"{plan['multi_tiles']} tiles")
+        require(same, f"two launches of the RoIAlign backward differ ({label})")
+        require(rel <= 1e-5, f"RoIAlign backward differs from its plain version by {rel} ({label})")
+        require(all(plan[k] == plain_plan[k] for k in plan),
+                f"the kernel's plan {plan} is not the plain plan {plain_plan} ({label})")
+        return a_err, plan
+
+    def check_bwd(label, g, shapes, boxes, bidx, lidx, crop, images):
+        """One K3 call held by :func:`hold_bwd`, then timed beside its plain
+        version, its bytes bound and grid_sample's backward. Returns its
+        numbers."""
+        a_err, _ = hold_bwd(label, g, shapes, boxes, bidx, lidx, crop)
         k_ms = cuda_ms(torch, lambda: roi_ops.roi_align_bwd(g, shapes, boxes, bidx, lidx, crop),
                        20)
         p_ms = cuda_ms(torch, lambda: roi_ops.multilevel_gather_bwd_plain(
@@ -800,18 +814,9 @@ def main() -> int:
         l_ms = grid_sample_bwd_ms(shapes, boxes, crop, g, images)
         nbytes = bwd_bytes(g, shapes)
         b_ms = nbytes / H100_BYTES_PER_S * 1e3
-        log(f"  roi_align_bwd {label} n={boxes.shape[0]} crop={crop}: rel err {rel:.3g} "
-            f"against the float64 plain version (max |grad| {top:.4g}; against the float32 "
-            f"plain version {rel32:.3g}, which is {plain32:.3g} from float64), "
-            f"two launches bit-equal {same}, {k_ms:.4f} ms, "
+        log(f"  roi_align_bwd {label} n={boxes.shape[0]} crop={crop}: {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, grid_sample backward {l_ms:.4f} ms, bound {b_ms:.6f} ms "
-            f"({nbytes} bytes); work items {plan['items']}, largest chunk count "
-            f"{plan['max_chunks']}, partial tiles {plan['partials']} over "
-            f"{plan['multi_tiles']} tiles")
-        require(same, f"two launches of the RoIAlign backward differ ({label})")
-        require(rel <= 1e-5, f"RoIAlign backward differs from its plain version by {rel} ({label})")
-        require(all(plan[k] == plain_plan[k] for k in plan),
-                f"the kernel's plan {plan} is not the plain plan {plain_plan} ({label})")
+            f"({nbytes} bytes)")
         return dict(abs=a_err, ms=k_ms, plain_ms=p_ms, lib_ms=l_ms, bytes=nbytes)
 
     def crowd_cases(shapes):
@@ -842,8 +847,7 @@ def main() -> int:
 
     def bwd_kernel():
         """K3 replayed on the cotangents of the last train step, then on the
-        two crowds at the train step's shapes, then over its two split
-        constants on both."""
+        two crowds at the train step's shapes."""
         calls = train["bwd_calls"]
         require(len(calls) == 2, f"{len(calls)} recorded backward calls, want 2")
         abs_err, ms, plain_ms, lib_ms, nbytes, ops = 0.0, 0.0, 0.0, 0.0, 0, 0
@@ -872,32 +876,11 @@ def main() -> int:
         # the two crowds at the train step's shapes and crops
         shapes = calls[0][0][1]
         rng = torch.Generator(device="cuda").manual_seed(12)
-        cases = crowd_cases(shapes)
-        for label, boxes, bidx, lidx, images in cases:
+        for label, boxes, bidx, lidx, images in crowd_cases(shapes):
             for c in (7, 14):
                 g = torch.randn((boxes.shape[0], c, c, shapes[0][3]), device="cuda", generator=rng)
                 r = check_bwd(label, g, shapes, boxes, bidx, lidx, (c, c), images)
                 abs_err = max(abs_err, r["abs"])
-
-        # how the kernel splits a crowded tile: the train step's calls and
-        # the crowds at 14², over the boxes per work item and the count of
-        # boxes above which a tile is split
-        chunk0, split0 = roi_ops.BWD_CHUNK_BOXES, roi_ops.BWD_SPLIT_ABOVE
-        sweep = [(f"train step {tuple(a[5])}", a[:6]) for a, _ in calls]
-        for label, boxes, bidx, lidx, _ in cases:
-            g = torch.randn((boxes.shape[0], 14, 14, shapes[0][3]), device="cuda", generator=rng)
-            sweep.append((f"{label} (14, 14)", (g, shapes, boxes, bidx, lidx, (14, 14))))
-        try:
-            for chunk, split in ([(c, split0) for c in (1, 2, 4, 8, 16)]
-                                 + [(chunk0, s) for s in (0, 4, 8, 32, 64)]):
-                roi_ops.BWD_CHUNK_BOXES, roi_ops.BWD_SPLIT_ABOVE = chunk, split
-                times = [cuda_ms(torch, lambda: roi_ops.roi_align_bwd(*a), 10) for _, a in sweep]
-                log(f"  BWD_CHUNK_BOXES {chunk:2d} BWD_SPLIT_ABOVE {split:2d}: " + ", ".join(
-                    f"{label} {t:.4f} ms" for (label, _), t in zip(sweep, times))
-                    + f"; train step {times[0] + times[1]:.4f} ms")
-        finally:
-            roi_ops.BWD_CHUNK_BOXES, roi_ops.BWD_SPLIT_ABOVE = chunk0, split0
-        del sweep
 
         # K1 on the train path: the last step's five forward poolings, each
         # against its plain version and timed
@@ -931,9 +914,9 @@ def main() -> int:
 
     def bwd_sweep():
         """The ``bwd`` sweep of tools/profile_roi.py (B=8, 200 boxes per
-        image over P2-P5 of 1024², 7² and 14²), then K3, alone and under K1
-        through autograd, against the plain backward on the very tensors it
-        timed."""
+        image over P2-P5 of 1024², 7² and 14²), then K3 held by
+        :func:`hold_bwd` on the very tensors it timed, and under K1 through
+        autograd against the plain backward and bit-equal over two runs."""
         rows = profile_roi.bwd(batch=8, boxes=200, size=1024, reps=5, device="cuda")
         log("BWD_SWEEP B=8, 200 boxes per image, P2-P5 of 1024², 256 channels:")
         for r in rows:
@@ -941,37 +924,30 @@ def main() -> int:
         k3 = next(r for r in rows if r["route"] == "roi_align_bwd (K3) 14x14")
         out = profile_by_family(torch, lambda: k3["fn"](*k3["args"]), 5, BWD_PASSES)
         log_breakdown("BWD BREAKDOWN the sweep's K3 14x14", *out)
-        # the spread-out case over the count of boxes above which a tile is split
-        split0 = roi_ops.BWD_SPLIT_ABOVE
-        try:
-            for split in (4, 8, 16, 32, 64):
-                roi_ops.BWD_SPLIT_ABOVE = split
-                times = [cuda_ms(torch, lambda: r["fn"](*r["args"]), 10)
-                         for r in rows if r["fn"] is roi_ops.roi_align_bwd]
-                log(f"  BWD_SPLIT_ABOVE {split:2d}: K3 7x7 {times[0]:.4f} ms, "
-                    f"14x14 {times[1]:.4f} ms")
-        finally:
-            roi_ops.BWD_SPLIT_ABOVE = split0
         abs_err = 0.0
         for r in rows:
             if r["fn"] is roi_ops.roi_align_bwd:
-                g, shapes, boxes, bidx, lidx, crop = r["args"]
+                g, shapes = r["args"][:2]
+                a_err, _ = hold_bwd(r["route"], *r["args"])
             elif r["fn"] is profile_roi.roi_align_fwd_bwd:
                 maps, boxes, bidx, lidx, crop, g = r["args"]
                 shapes = [tuple(m.shape) for m in maps]
+                got, again = r["fn"](*r["args"]), r["fn"](*r["args"])
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                _, a_err, rel, rel32, plain32 = bwd_errors(got, g, shapes, boxes, bidx, lidx, crop)
+                del got, again
+                log(f"  {r['route']}: rel err {rel:.3g} against the float64 plain backward "
+                    f"({rel32:.3g} against float32, itself {plain32:.3g} from float64), "
+                    f"two runs bit-equal {same}")
+                require(same, f"two runs of {r['route']} differ")
+                require(rel <= 1e-5, f"{r['route']} differs from the plain backward by "
+                        f"{rel} of its largest gradient")
             else:
                 continue
-            with torch.no_grad():
-                got = r["fn"](*r["args"])
-            plan = dict(roi_ops.last_bwd_plan)
-            top, a_err, rel, rel32, plain32 = bwd_errors(got, g, shapes, boxes, bidx, lidx, crop)
-            log(f"  {r['route']}: rel err {rel:.3g} against the float64 plain backward "
-                f"({rel32:.3g} against float32, itself {plain32:.3g} from float64); plan {plan}; "
-                f"bound {bwd_bytes(g, shapes) / H100_BYTES_PER_S * 1e3:.6f} ms")
-            require(rel <= 1e-5, f"{r['route']} differs from the plain backward by "
-                    f"{rel} of its largest gradient")
+            log(f"  {r['route']}: {r['ms']:.4f} ms, bound "
+                f"{bwd_bytes(g, shapes) / H100_BYTES_PER_S * 1e3:.6f} ms")
             abs_err = max(abs_err, a_err)
-            del got
         fold_err("roi_align_bwd", abs_err)
 
     if "train_path" not in failures:
@@ -1103,7 +1079,8 @@ def main() -> int:
         and K5 at the ``crop`` shapes, K5 on the ``stage`` P4 map, K1 at the
         ``stage`` 7² and 14² poolings), K4 with a non-zero extrapolation on
         out-of-range and inverted boxes, and the gradient of
-        ``crop_and_resize_fused`` on the card against the CPU."""
+        ``crop_and_resize_fused`` on the card against the CPU, on the sweep's
+        maps and on a 3-channel image of odd width."""
         cuda_build.launches.clear()
         crop_rows = profile_roi.crop(batch=8, boxes=1024, size=256, reps=5, device="cuda")
         with Recorder(roi_ops, "roi_align_fwd") as stage_k1:
@@ -1201,19 +1178,31 @@ def main() -> int:
             require(e <= 1e-5 and e_mm <= 1e-5 and extrap > 0,
                     "K4/K5 differ from their plain versions on out-of-range boxes")
 
-        # the fused gradient, card against the CPU's plain versions
-        sub_img, sub_boxes = image[:2].clone(), boxes[:2, :256].contiguous()
-        grads = []
-        for dev in ("cuda", "cpu"):
-            x = sub_img.detach().to(dev).requires_grad_(True)
-            out = roi_ops.crop_and_resize_fused(x, sub_boxes.to(dev), crop)
-            (out * out).sum().backward()
-            grads.append(x.grad.cpu())
-        top = float(grads[1].abs().max())
-        g_err = float((grads[0] - grads[1]).abs().max()) / max(top, 1e-30)
-        log(f"  crop_and_resize_fused gradient card vs CPU: rel err {g_err:.3g} "
-            f"(max |grad| {top:.4g})")
-        require(g_err <= 1e-5, f"the fused gradient differs by {g_err} of its largest value")
+        # the fused gradient, card against the CPU's plain versions: on the
+        # sweep's maps, then on an RGB image 51 pixels wide, whose map rows
+        # start off 16-byte boundaries: small boxes leave most tiles to one
+        # work item that writes the map itself, and 12 zero boxes per image
+        # give tile (0, 0) several
+        rgb = torch.randn((2, 40, 51, 3), device="cuda", generator=g)
+        yx = torch.rand((2, 64, 2), device="cuda", generator=g) * 0.85
+        hw = torch.rand((2, 64, 2), device="cuda", generator=g) * 0.1 + 0.02
+        rgb_boxes = torch.cat([yx, yx + hw], -1)
+        rgb_boxes[:, :12] = 0.0
+        for label, sub_img, sub_boxes in (
+                ("256 channels", image[:2].clone(), boxes[:2, :256].contiguous()),
+                ("3 channels, 51 wide", rgb, rgb_boxes)):
+            grads = []
+            for dev in ("cuda", "cpu"):
+                x = sub_img.detach().to(dev).requires_grad_(True)
+                out = roi_ops.crop_and_resize_fused(x, sub_boxes.to(dev), crop)
+                (out * out).sum().backward()
+                grads.append(x.grad.cpu())
+            top = float(grads[1].abs().max())
+            g_err = float((grads[0] - grads[1]).abs().max()) / max(top, 1e-30)
+            log(f"  crop_and_resize_fused gradient card vs CPU, {label}: rel err {g_err:.3g} "
+                f"(max |grad| {top:.4g})")
+            require(g_err <= 1e-5, f"the fused gradient differs by {g_err} of its largest "
+                    f"value ({label})")
 
     phase("roi_single", roi_single)
 

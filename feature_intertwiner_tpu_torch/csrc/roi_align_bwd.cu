@@ -38,10 +38,10 @@
 //      stable counting sort), so that later passes scan only those.
 //   3. count: one warp per tile counts the boxes whose rectangle meets it (a
 //      ballot scan of its bin).
-//   4. scan: one block gives each tile that more than `split` boxes meet
-//      ceil(count / chunk) work items (every other tile one), each tile of
-//      several items its slots of partial tiles, and each tile the start of
-//      its box list, by prefix sums; it writes the totals.
+//   4. scan: one block gives each tile that more than kSplitAbove boxes
+//      meet ceil(count / kChunk) work items (every other tile one), each
+//      tile of several items its slots of partial tiles, and each tile the
+//      start of its box list, by prefix sums; it writes the totals.
 //  The caller reads the five totals back to the host (the one device-to-host
 //  read per call) to size the grid and the scratch of the work lists and
 //  partial tiles, then
@@ -49,10 +49,10 @@
 //   5. list: one warp per tile writes its box list, in index order, and the
 //      tile of each of its work items.
 //   6. accumulate: one block per work item (tile, q) stages the taps of the
-//      boxes of ranks [q*chunk, (q+1)*chunk) of the tile's list (all of
-//      them, for a tile of one item) in shared
-//      memory and adds their weighted cotangents, box by box, row by row and
-//      sample by sample, into its tile in shared memory, thread c owning
+//      boxes of ranks [q*kChunk, (q+1)*kChunk) of the tile's list (all of
+//      them, for a tile of one item) in shared memory and adds their
+//      weighted cotangents, box by box, row by row and sample by sample,
+//      into its tile in shared memory, thread c owning
 //      channel c. Along a box's sample row the x taps do not decrease, and
 //      every sample of a degenerate box taps one cell, so consecutive adds
 //      into one cell are summed in a register (in double) and added to
@@ -76,7 +76,15 @@ constexpr int kThreads = 256;     // threads per block of every pass but the sca
 constexpr int kWarps = kThreads / 32;
 constexpr int kScanThreads = 1024;
 constexpr int kLoad = 8;          // samples of a row whose cotangents load together
-constexpr int kMaxChunk = 64;     // most boxes one work item takes
+// A tile that more than kSplitAbove boxes meet is split into work items of
+// kChunk boxes. Small items spread a crowded tile (the zero-padded RoI
+// slots) over the most blocks; leaving tiles of a few boxes whole spares a
+// spread-out call the partial tiles' round trip through memory, which
+// doubled its time on the H100 when every tile of more than kChunk boxes
+// was split (PERF.md).
+constexpr int kChunk = 2;
+constexpr int kSplitAbove = 16;
+static_assert(kChunk <= kSplitAbove, "an item takes at most kSplitAbove boxes");
 constexpr int kTotals = 5;        // the plan's totals, read by the host
 
 struct Levels {
@@ -118,9 +126,9 @@ __device__ __forceinline__ bool meets(int4 f, int key, int row, int x0, int tw) 
 }
 
 // Work items of a tile that `count` boxes meet: one, unless more than
-// `split` boxes meet it; then one per `chunk` of them.
-__device__ __forceinline__ int chunks_of(int count, int chunk, int split) {
-  return count <= split || count == 0 ? 1 : (count + chunk - 1) / chunk;
+// kSplitAbove boxes meet it; then one per kChunk of them.
+__device__ __forceinline__ int chunks_of(int count) {
+  return count <= kSplitAbove ? 1 : (count + kChunk - 1) / kChunk;
 }
 
 // Sum of v over the block (integers: the order does not matter). `red` holds
@@ -135,9 +143,12 @@ __device__ int block_sum(int v, int* red) {
   return s;
 }
 
-// Writes `elems` floats of src (or zeros when src is null) to dst.
+// Writes `elems` floats of src (or zeros when src is null) to dst, four at a
+// time where both are 16-byte aligned: a map row of a channel count that is
+// not a multiple of 4 (an RGB crop's image) starts anywhere.
 __device__ __forceinline__ void store_tile(float* dst, const float* src, int elems) {
-  if ((elems & 3) == 0) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src);
+  if ((elems & 3) == 0 && (at & 15) == 0) {
     float4* d4 = reinterpret_cast<float4*>(dst);
     const float4* s4 = reinterpret_cast<const float4*>(src);
     for (int e = threadIdx.x; e < (elems >> 2); e += kThreads) {
@@ -252,7 +263,7 @@ roi_align_bwd_count(Levels lv, int num_levels, int batch, int total_tiles,
 // prefix sums over the tiles; totals = (work items, partial slots, tiles of
 // several items, most items of one tile, (box, tile) pairs).
 __global__ void __launch_bounds__(kScanThreads)
-roi_align_bwd_scan(int total_tiles, int chunk, int split, const int* __restrict__ tile_count,
+roi_align_bwd_scan(int total_tiles, const int* __restrict__ tile_count,
          int* __restrict__ item_start, int* __restrict__ part_start,
          int* __restrict__ list_start, int* __restrict__ multi_list,
          int* __restrict__ totals) {
@@ -265,7 +276,7 @@ roi_align_bwd_scan(int total_tiles, int chunk, int split, const int* __restrict_
   int items = 0, parts = 0, multi = 0, pairs = 0, most = 0;
   for (int t = lo; t < hi; ++t) {
     const int n = tile_count[t];
-    const int c = chunks_of(n, chunk, split);
+    const int c = chunks_of(n);
     items += c;
     pairs += n;
     if (c > 1) {
@@ -298,7 +309,7 @@ roi_align_bwd_scan(int total_tiles, int chunk, int split, const int* __restrict_
   int rb = s_pairs[tid] - pairs;
   for (int t = lo; t < hi; ++t) {
     const int n = tile_count[t];
-    const int c = chunks_of(n, chunk, split);
+    const int c = chunks_of(n);
     item_start[t] = ib;
     list_start[t] = rb;
     ib += c;
@@ -323,7 +334,7 @@ roi_align_bwd_scan(int total_tiles, int chunk, int split, const int* __restrict_
 // One warp per tile: its boxes, in index order, at pairs[list_start[t]...],
 // and its work items' tile.
 __global__ void __launch_bounds__(kThreads)
-roi_align_bwd_list(Levels lv, int num_levels, int batch, int total_tiles, int chunk, int split,
+roi_align_bwd_list(Levels lv, int num_levels, int batch, int total_tiles,
          const int4* __restrict__ info, const int* __restrict__ bins,
          const int* __restrict__ bin_start, const int* __restrict__ bin_count,
          const int* __restrict__ tile_count, const int* __restrict__ item_start,
@@ -333,7 +344,7 @@ roi_align_bwd_list(Levels lv, int num_levels, int batch, int total_tiles, int ch
   if (t >= total_tiles) return;  // the whole warp
   const int lane = threadIdx.x & 31;
   const int count = tile_count[t];
-  for (int q = lane; q < chunks_of(count, chunk, split); q += 32) item_tile[item_start[t] + q] = t;
+  for (int q = lane; q < chunks_of(count); q += 32) item_tile[item_start[t] + q] = t;
   if (count == 0) return;
   const Tile d = decode_tile(lv, num_levels, t);
   const int key = d.level * batch + d.image;
@@ -364,17 +375,16 @@ __device__ __forceinline__ void fold_add(float* acc, int channels, int c, int& c
 }
 
 __global__ void __launch_bounds__(kThreads, 4)
-roi_align_bwd_accumulate(Levels lv, int num_levels, int channels, int chunk, int split, int crop_h,
-                         int crop_w,
+roi_align_bwd_accumulate(Levels lv, int num_levels, int channels, int crop_h, int crop_w,
                const float* __restrict__ g, const int2* __restrict__ ytap,
                const int2* __restrict__ xtap, const int* __restrict__ tile_count,
                const int* __restrict__ item_start, const int* __restrict__ part_start,
                const int* __restrict__ list_start, const int* __restrict__ item_tile,
                const int* __restrict__ pairs, float* __restrict__ partials) {
-  extern __shared__ float acc[];  // [kTileW, channels], then the staged taps
-  __shared__ int sbox[kMaxChunk];
-  int2* sy = reinterpret_cast<int2*>(acc + kTileW * channels);  // [boxes, crop_h]
-  int2* sx = sy + max(chunk, split) * crop_h;                    // [boxes, crop_w]
+  extern __shared__ __align__(16) float acc[];  // [kTileW, channels], then the staged taps
+  __shared__ int sbox[kSplitAbove];
+  int2* sy = reinterpret_cast<int2*>(acc + kTileW * channels);  // [kSplitAbove, crop_h]
+  int2* sx = sy + kSplitAbove * crop_h;                          // [kSplitAbove, crop_w]
 
   const int item = blockIdx.x;
   const int t = item_tile[item];
@@ -390,7 +400,7 @@ roi_align_bwd_accumulate(Levels lv, int num_levels, int channels, int chunk, int
     return;
   }
   // this item's boxes: ranks [q*per, q*per + nb) of the tile's list
-  const int per = count <= split ? count : chunk;
+  const int per = count <= kSplitAbove ? count : kChunk;
   const int nb = min(per, count - q * per);
   const int* list = pairs + list_start[t] + q * per;
   if (threadIdx.x < nb) sbox[threadIdx.x] = list[threadIdx.x];
@@ -467,14 +477,14 @@ roi_align_bwd_accumulate(Levels lv, int num_levels, int channels, int chunk, int
 // Block (m, x): map column x0 + x of the m-th tile of several items, the sum
 // of its partial tiles in item order, in double.
 __global__ void __launch_bounds__(kThreads)
-roi_align_bwd_fold(Levels lv, int num_levels, int channels, int chunk, int split,
+roi_align_bwd_fold(Levels lv, int num_levels, int channels,
          const int* __restrict__ multi_list, const int* __restrict__ tile_count,
          const int* __restrict__ part_start, const float* __restrict__ partials) {
   const int t = multi_list[blockIdx.x];
   const Tile d = decode_tile(lv, num_levels, t);
   const int x = blockIdx.y;
   if (x >= d.tw) return;
-  const int items = chunks_of(tile_count[t], chunk, split);
+  const int items = chunks_of(tile_count[t]);
   const size_t slot = (size_t)kTileW * channels;
   const float* src = partials + (size_t)part_start[t] * slot + (size_t)x * channels;
   float* dst = map_row(lv, d, channels) + (size_t)x * channels;
@@ -569,22 +579,18 @@ extern "C" long long roi_align_bwd_partial_floats(int partials, int channels) {
 
 // Passes 1-4. heights/widths: num_levels host ints; boxes [n, 4] float32,
 // box_idx and level_idx [n] int32 (0-based level) in device memory;
-// inv_h/inv_w: float32 1/(crop-1), as the forward got them; chunk (1 to 64)
-// and split (0 to 64): a tile that more than `split` boxes meet is split
-// into work items of `chunk` boxes; scratch: device ints of roi_align_bwd_scratch_ints,
-// 16-byte aligned. Writes the totals (work items, partial slots, tiles of
-// several items, most items of one tile, (box, tile) pairs) into the last
-// five ints of scratch and returns the first cudaError_t.
+// inv_h/inv_w: float32 1/(crop-1), as the forward got them; scratch: device
+// ints of roi_align_bwd_scratch_ints, 16-byte aligned. Writes the totals
+// (work items, partial slots, tiles of several items, most items of one
+// tile, (box, tile) pairs) into the last five ints of scratch and returns
+// the first cudaError_t.
 extern "C" int roi_align_bwd_plan(const int* heights, const int* widths, int num_levels,
                                   int batch, const float* boxes, const int* box_idx,
                                   const int* level_idx, int n, int crop_h, int crop_w,
-                                  float inv_h, float inv_w, int chunk, int split,
-                                  int* scratch,
-                                  void* stream) {
+                                  float inv_h, float inv_w, int* scratch, void* stream) {
   Levels lv;
   int tiles = 0;
-  if (n < 0 || crop_h < 1 || crop_w < 1 || chunk < 1 || chunk > kMaxChunk || split < 0 ||
-      split > kMaxChunk ||
+  if (n < 0 || crop_h < 1 || crop_w < 1 ||
       !make_levels(nullptr, heights, widths, num_levels, batch, &lv, &tiles)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -600,8 +606,7 @@ extern "C" int roi_align_bwd_plan(const int* heights, const int* widths, int num
   roi_align_bwd_bin<<<keys, kThreads, 0, st>>>(s.info, n, s.bins, s.bin_start, s.bin_count);
   roi_align_bwd_count<<<(tiles + kWarps - 1) / kWarps, kThreads, 0, st>>>(
       lv, num_levels, batch, tiles, s.info, s.bins, s.bin_start, s.bin_count, s.tile_count);
-  roi_align_bwd_scan<<<1, kScanThreads, 0, st>>>(tiles, chunk, split, s.tile_count,
-                                                s.item_start,
+  roi_align_bwd_scan<<<1, kScanThreads, 0, st>>>(tiles, s.tile_count, s.item_start,
                                                 s.part_start, s.list_start, s.multi_list,
                                                 s.totals);
   return (int)cudaGetLastError();
@@ -617,20 +622,18 @@ extern "C" int roi_align_bwd_plan(const int* heights, const int* widths, int num
 // first cudaError_t.
 extern "C" int roi_align_bwd(void* const* out_ptrs, const int* heights, const int* widths,
                              int num_levels, int batch, int channels, const float* g, int n,
-                             int crop_h, int crop_w, int chunk, int split, int* scratch,
-                             int items,
+                             int crop_h, int crop_w, int* scratch, int items,
                              int multi_tiles, int pairs, int* work, float* partials,
                              void* stream) {
   Levels lv;
   int tiles = 0;
-  if (channels < 1 || n < 0 || crop_h < 1 || crop_w < 1 || chunk < 1 || chunk > kMaxChunk ||
-      split < 0 || split > kMaxChunk || items < 1 || multi_tiles < 0 || pairs < 0 ||
-      !make_levels(out_ptrs, heights, widths, num_levels, batch, &lv, &tiles)) {
+  if (channels < 1 || n < 0 || crop_h < 1 || crop_w < 1 || items < 1 || multi_tiles < 0 ||
+      pairs < 0 || !make_levels(out_ptrs, heights, widths, num_levels, batch, &lv, &tiles)) {
     return (int)cudaErrorInvalidValue;
   }
-  // the tile, then the staged taps of up to max(chunk, split) boxes
+  // the tile, then the staged taps of up to kSplitAbove boxes
   const size_t smem = (size_t)kTileW * channels * sizeof(float) +
-                      (size_t)(chunk > split ? chunk : split) * (crop_h + crop_w) * sizeof(int2);
+                      (size_t)kSplitAbove * (crop_h + crop_w) * sizeof(int2);
   if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
   Scratch s;
   scratch_layout(scratch, n, crop_h, crop_w, num_levels * batch, tiles, &s);
@@ -638,7 +641,7 @@ extern "C" int roi_align_bwd(void* const* out_ptrs, const int* heights, const in
   int* lists = work + items;
   cudaStream_t st = (cudaStream_t)stream;
   roi_align_bwd_list<<<(tiles + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      lv, num_levels, batch, tiles, chunk, split, s.info, s.bins, s.bin_start, s.bin_count,
+      lv, num_levels, batch, tiles, s.info, s.bins, s.bin_start, s.bin_count,
       s.tile_count, s.item_start, s.list_start, item_tile, lists);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -648,12 +651,11 @@ extern "C" int roi_align_bwd(void* const* out_ptrs, const int* heights, const in
     if (err != cudaSuccess) return (int)err;
   }
   roi_align_bwd_accumulate<<<items, kThreads, smem, st>>>(
-      lv, num_levels, channels, chunk, split, crop_h, crop_w, g, s.ytap, s.xtap, s.tile_count,
+      lv, num_levels, channels, crop_h, crop_w, g, s.ytap, s.xtap, s.tile_count,
       s.item_start, s.part_start, s.list_start, item_tile, lists, partials);
   err = cudaGetLastError();
   if (err != cudaSuccess || multi_tiles == 0) return (int)err;
   roi_align_bwd_fold<<<dim3(multi_tiles, kTileW), kThreads, 0, st>>>(
-      lv, num_levels, channels, chunk, split, s.multi_list, s.tile_count, s.part_start,
-      partials);
+      lv, num_levels, channels, s.multi_list, s.tile_count, s.part_start, partials);
   return (int)cudaGetLastError();
 }

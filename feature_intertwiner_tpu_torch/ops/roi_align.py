@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -308,9 +308,22 @@ def roi_align_bwd(
     Kernel wrapper: on CUDA tensors it launches ``csrc/roi_align_bwd.cu``
     (which replaces ``feature_intertwiner_tpu/ops/roi_align_window_bwd.py::
     _bwd_kernel``); on CPU tensors it runs
-    :func:`multilevel_gather_bwd_plain`. Each launch adds one to
-    ``cuda_build.launches["roi_align_bwd"]`` and leaves its plan (the totals
-    of :func:`bwd_work_plan`) in ``last_bwd_plan``.
+    :func:`multilevel_gather_bwd_plain`. See :func:`roi_align_bwd_with_plan`."""
+    return roi_align_bwd_with_plan(g, shapes, boxes, box_indices, level_idx, crop_size)[0]
+
+
+def roi_align_bwd_with_plan(
+    g: torch.Tensor,
+    shapes: Sequence[Sequence[int]],
+    boxes: torch.Tensor,
+    box_indices: torch.Tensor,
+    level_idx: torch.Tensor,
+    crop_size: Tuple[int, int],
+) -> Tuple[List[torch.Tensor], Optional[Dict[str, int]]]:
+    """:func:`roi_align_bwd`'s gradients and, on CUDA tensors, the totals of
+    the work plan the kernel made (those of :func:`bwd_work_plan` but
+    ``tiles``); None on CPU tensors, where the plain version runs. Each
+    launch adds one to ``cuda_build.launches["roi_align_bwd"]``.
 
     The kernel plans on the card how it splits each map tile's boxes across
     blocks, then reads the plan's five totals back to the host to size its
@@ -326,7 +339,7 @@ def roi_align_bwd(
         raise ValueError(f"g must be float32 [{n}, {ch}, {cw}, {c}] on the boxes' device")
     if dev.type == "cpu":
         return multilevel_gather_bwd_plain(g, shapes, boxes, box_indices,
-                                           level_idx, (ch, cw))
+                                           level_idx, (ch, cw)), None
     if dev.type != "cuda":
         raise ValueError(f"roi_align_bwd runs on cuda or cpu, not {dev}")
     if not g.is_contiguous():
@@ -345,38 +358,31 @@ def roi_align_bwd(
     if size < 0:
         raise ValueError(f"roi_align_bwd: level shapes {shapes} out of the kernel's range")
     scratch = torch.empty(size, dtype=torch.int32, device=dev)
-    chunk, split = BWD_CHUNK_BOXES, BWD_SPLIT_ABOVE
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.roi_align_bwd_plan(hs, ws, num, b, boxes.data_ptr(), bidx.data_ptr(),
                                      lidx.data_ptr(), n, ch, cw, reciprocal(ch),
-                                     reciprocal(cw), chunk, split, scratch.data_ptr(), stream)
+                                     reciprocal(cw), scratch.data_ptr(), stream)
         cuda_build.check(err, "roi_align_bwd_plan")
         items, partials, multi_tiles, max_chunks, pairs = scratch[-5:].tolist()
         work = torch.empty(items + pairs, dtype=torch.int32, device=dev)
         part = torch.empty(max(lib.roi_align_bwd_partial_floats(partials, c), 1),
                            dtype=torch.float32, device=dev)
-        err = lib.roi_align_bwd(ptrs, hs, ws, num, b, c, g.data_ptr(), n, ch, cw, chunk, split,
+        err = lib.roi_align_bwd(ptrs, hs, ws, num, b, c, g.data_ptr(), n, ch, cw,
                                 scratch.data_ptr(), items, multi_tiles, pairs, work.data_ptr(),
                                 part.data_ptr(), stream)
     cuda_build.check(err, "roi_align_bwd")
     cuda_build.launches["roi_align_bwd"] += 1
-    last_bwd_plan.clear()
-    last_bwd_plan.update(items=items, partials=partials, multi_tiles=multi_tiles,
-                         max_chunks=max_chunks, pairs=pairs)
-    return outs
+    return outs, dict(items=items, partials=partials, multi_tiles=multi_tiles,
+                      max_chunks=max_chunks, pairs=pairs)
 
 
-# The backward kernel splits a map tile that more than BWD_SPLIT_ABOVE boxes
-# meet across blocks, one per BWD_CHUNK_BOXES of its boxes (both chosen on
-# the H100 by chip_smoke.py's sweep over the train step's calls and the
-# crowds; PERF.md).
+# csrc/roi_align_bwd.cu's constants: a tile that more than BWD_SPLIT_ABOVE
+# boxes meet is split into work items of BWD_CHUNK_BOXES boxes (kSplitAbove,
+# kChunk); map columns per tile (kTileW).
 BWD_CHUNK_BOXES = 2
 BWD_SPLIT_ABOVE = 16
-# Map columns per tile of csrc/roi_align_bwd.cu (its kTileW).
 BWD_TILE_W = 32
-# The totals of the last CUDA call of roi_align_bwd's plan.
-last_bwd_plan: Dict[str, int] = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -391,10 +397,10 @@ def _bwd_library() -> ctypes.CDLL:
     lib.roi_align_bwd_partial_floats.argtypes = [i32, i32]
     lib.roi_align_bwd_plan.restype = i32
     lib.roi_align_bwd_plan.argtypes = ([ints, ints, i32, i32, ptr, ptr, ptr] + [i32] * 3
-                                       + [f32, f32, i32, i32, ptr, ptr])
+                                       + [f32, f32, ptr, ptr])
     lib.roi_align_bwd.restype = i32
     lib.roi_align_bwd.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ints, ints] + [i32] * 3
-                                  + [ptr] + [i32] * 5 + [ptr] + [i32] * 3 + [ptr] * 3)
+                                  + [ptr] + [i32] * 3 + [ptr] + [i32] * 3 + [ptr] * 3)
     return lib
 
 
@@ -404,8 +410,8 @@ def bwd_work_plan(
     box_indices: torch.Tensor,
     level_idx: torch.Tensor,
     crop_size: Tuple[int, int],
-    chunk_boxes: int = None,
-    split_above: int = None,
+    chunk_boxes: int = BWD_CHUNK_BOXES,
+    split_above: int = BWD_SPLIT_ABOVE,
 ) -> Dict[str, int]:
     """Plain version of the backward kernel's planning passes: how
     ``csrc/roi_align_bwd.cu`` splits the work for these boxes.
@@ -413,14 +419,13 @@ def bwd_work_plan(
     A tile is (level, image, map row, ``BWD_TILE_W`` map columns); a box
     meets it when the rectangle of the cells its valid samples tap covers
     it. A tile that ``c > split_above`` boxes meet gets ``ceil(c /
-    chunk_boxes)`` work items, every other tile one (defaults
-    ``BWD_CHUNK_BOXES``, ``BWD_SPLIT_ABOVE``); a tile of several items gets
-    as many slots of partial tiles. Returns the totals the kernel reads
+    chunk_boxes)`` work items, every other tile one (the kernel's constants
+    are the defaults); a tile of several items gets as many slots of
+    partial tiles. Returns the totals the kernel reads
     back: ``items``, ``partials`` (slots), ``multi_tiles`` (tiles of several
     items), ``max_chunks`` (most items of one tile) and ``pairs`` (the
     (box, tile) pairs of the tiles' box lists), and ``tiles``."""
-    chunk = int(chunk_boxes or BWD_CHUNK_BOXES)
-    split = int(BWD_SPLIT_ABOVE if split_above is None else split_above)
+    chunk, split = int(chunk_boxes), int(split_above)
     shapes = [tuple(int(d) for d in s) for s in shapes]
     b, num = shapes[0][0], len(shapes)
     ch, cw = (int(v) for v in crop_size)

@@ -322,6 +322,19 @@ def test_bwd_work_plan_splits_the_zero_padded_tile():
         split_above=roi.BWD_SPLIT_ABOVE)
 
 
+def test_roi_align_bwd_with_plan_runs_the_plain_version_on_the_cpu():
+    """On CPU tensors there is no kernel, so no plan: the gradients are the
+    plain version's, and ``roi_align_bwd`` returns the same."""
+    rng = np.random.RandomState(45)
+    _, b, bidx, lvl = _pooling_inputs(rng)
+    g = T(rng.randn(len(b), 7, 7, 8).astype(np.float32))
+    args = (g, SHAPES, T(b), T(bidx), T(lvl), (7, 7))
+    grads, plan = roi.roi_align_bwd_with_plan(*args)
+    assert plan is None
+    for d, p, w in zip(grads, roi.roi_align_bwd(*args), roi.multilevel_gather_bwd_plain(*args)):
+        assert torch.equal(d, w) and torch.equal(p, w)
+
+
 PSHAPES = ((2, 96, 80, 4), (2, 48, 40, 4), (2, 24, 20, 4), (2, 12, 10, 4))
 
 
