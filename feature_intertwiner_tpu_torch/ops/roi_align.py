@@ -328,7 +328,12 @@ def roi_align_bwd_with_plan(
     The kernel plans on the card how it splits each map tile's boxes across
     blocks, then reads the plan's five totals back to the host to size its
     grid and its scratch: one device-to-host read per call, which waits for
-    the work queued before it."""
+    the work queued before it. A map too wide for one launch's shared-memory
+    tile takes one launch per channel chunk of :func:`bwd_channel_chunks`,
+    all on the one plan (it depends on the boxes only); each chunk writes
+    contiguous temporaries that are copied into its slice of the
+    gradients. Every channel is summed in the same order whatever its
+    chunk, so the result is bit-equal to the chunks' calls one by one."""
     shapes = [tuple(int(d) for d in s) for s in shapes]
     _check_pooling_args(shapes, boxes, box_indices, level_idx)
     b, c = shapes[0][0], shapes[0][3]
@@ -351,7 +356,6 @@ def roi_align_bwd_with_plan(
     outs = [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
     lib = _bwd_library()
     num = len(shapes)
-    ptrs = (ctypes.c_void_p * num)(*[o.data_ptr() for o in outs])
     hs = (ctypes.c_int * num)(*[s[1] for s in shapes])
     ws = (ctypes.c_int * num)(*[s[2] for s in shapes])
     size = lib.roi_align_bwd_scratch_ints(hs, ws, num, b, n, ch, cw)
@@ -366,23 +370,62 @@ def roi_align_bwd_with_plan(
         cuda_build.check(err, "roi_align_bwd_plan")
         items, partials, multi_tiles, max_chunks, pairs = scratch[-5:].tolist()
         work = torch.empty(items + pairs, dtype=torch.int32, device=dev)
-        part = torch.empty(max(lib.roi_align_bwd_partial_floats(partials, c), 1),
+        chunks = bwd_channel_chunks(c, (ch, cw))
+        widest = max(c1 - c0 for c0, c1 in chunks)
+        part = torch.empty(max(lib.roi_align_bwd_partial_floats(partials, widest), 1),
                            dtype=torch.float32, device=dev)
-        err = lib.roi_align_bwd(ptrs, hs, ws, num, b, c, g.data_ptr(), n, ch, cw,
-                                scratch.data_ptr(), items, multi_tiles, pairs, work.data_ptr(),
-                                part.data_ptr(), stream)
-    cuda_build.check(err, "roi_align_bwd")
-    cuda_build.launches["roi_align_bwd"] += 1
+        for c0, c1 in chunks:
+            if len(chunks) == 1:
+                g_part, dst = g, outs
+            else:
+                g_part = g[..., c0:c1].contiguous()
+                dst = [torch.empty((*s[:3], c1 - c0), dtype=torch.float32, device=dev)
+                       for s in shapes]
+            dst_ptrs = (ctypes.c_void_p * num)(*[o.data_ptr() for o in dst])
+            err = lib.roi_align_bwd(dst_ptrs, hs, ws, num, b, c1 - c0, g_part.data_ptr(), n,
+                                    ch, cw, scratch.data_ptr(), items, multi_tiles, pairs,
+                                    work.data_ptr(), part.data_ptr(), stream)
+            cuda_build.check(err, "roi_align_bwd")
+            cuda_build.launches["roi_align_bwd"] += 1
+            if dst is not outs:
+                for o, d in zip(outs, dst):
+                    o[..., c0:c1].copy_(d)
     return outs, dict(items=items, partials=partials, multi_tiles=multi_tiles,
                       max_chunks=max_chunks, pairs=pairs)
 
 
 # csrc/roi_align_bwd.cu's constants: a tile that more than BWD_SPLIT_ABOVE
 # boxes meet is split into work items of BWD_CHUNK_BOXES boxes (kSplitAbove,
-# kChunk); map columns per tile (kTileW).
+# kChunk); map columns per tile (kTileW); the accumulate pass's shared
+# memory, its tile and the staged taps, at most BWD_SHARED_BYTES.
 BWD_CHUNK_BOXES = 2
 BWD_SPLIT_ABOVE = 16
 BWD_TILE_W = 32
+BWD_SHARED_BYTES = 200 * 1024
+
+
+def bwd_shared_bytes(channels: int, crop_size: Tuple[int, int]) -> int:
+    """The backward kernel's accumulate pass's shared memory for one
+    launch: a tile of ``BWD_TILE_W`` columns of float32 channels, and the
+    (int2) taps of up to ``BWD_SPLIT_ABOVE`` boxes."""
+    ch, cw = crop_size
+    return BWD_TILE_W * channels * 4 + BWD_SPLIT_ABOVE * (ch + cw) * 8
+
+
+def bwd_channel_chunks(channels: int, crop_size: Tuple[int, int]) -> List[Tuple[int, int]]:
+    """``[start, stop)`` channel ranges, in order, covering ``[0, channels)``,
+    each of which fits one launch of the backward kernel: as few chunks as
+    ``BWD_SHARED_BYTES`` allows, of equal widths rounded up to a multiple of
+    4 where that still fits (so that their tiles store four floats at a
+    time). One chunk up to 1,586 channels at a 7² crop, 1,572 at 14²."""
+    ch, cw = (int(v) for v in crop_size)
+    widest = (BWD_SHARED_BYTES - bwd_shared_bytes(0, (ch, cw))) // (BWD_TILE_W * 4)
+    if widest < 1:
+        raise ValueError(f"roi_align_bwd: a {ch}x{cw} crop does not fit shared memory")
+    count = max(-(-channels // widest), 1)
+    width = -(-channels // count)
+    width = min(-(-width // 4) * 4, widest)
+    return [(c0, min(c0 + width, channels)) for c0 in range(0, channels, width)]
 
 
 @functools.lru_cache(maxsize=None)

@@ -229,6 +229,61 @@ def test_roi_align_gradient_matches_jax_grad(crop, layout):
     assert any(float(t.grad.abs().sum()) > 0 for t in tf)
 
 
+TRAIN_SHAPES = tuple((4, s, s, 8) for s in (256, 128, 64, 32))   # P2-P5 of 1024², 4 images
+
+
+@pytest.mark.parametrize("crop", [7, 14])
+def test_float32_plain_backward_is_as_near_the_exact_sum_as_jax_grad(crop):
+    """The train step's zero-padded crowd at 8 channels: 800 slots of 4
+    images, 740 of them the zero box, whose samples all add into cell (0, 0)
+    of P2 (9,065 terms per image at 7², 36,260 at 14²). The port's float32
+    plain backward (its CPU path) and ``jax.grad`` in float32 both lie
+    within 1e-5 of the largest gradient of the exact sum (the float64 plain
+    backward), and within 1e-7 of it of each other: both add the crowded
+    cell's terms in slot order."""
+    rng = np.random.RandomState(60 + crop)
+    b = np.zeros((4, 200, 4), np.float32)
+    b[:, :15] = random_boxes(rng, (4, 15), 0.0, 0.7, 0.02, 0.27)
+    b = b.reshape(-1, 4)
+    bidx = np.repeat(np.arange(4, dtype=np.int32), 200)
+    lvl = np.array(jroi.assign_fpn_level(jnp.asarray(b), (1024, 1024)) - 2, np.int32)
+    assert int((np.abs(b).sum(1) == 0).sum()) == 740
+    g = rng.randn(len(b), crop, crop, 8).astype(np.float32)
+
+    def f(fs):
+        out = jroi.multilevel_crop_and_resize(list(fs), jnp.asarray(b), jnp.asarray(bidx),
+                                              (crop, crop), (1024, 1024),
+                                              level_idx=jnp.asarray(lvl))
+        return jnp.sum(out * g)
+
+    feats = tuple(jnp.zeros(s, jnp.float32) for s in TRAIN_SHAPES)
+    jax32 = [np.asarray(w, np.float64) for w in jax.grad(f)(feats)]
+    args = (TRAIN_SHAPES, T(b), T(bidx), T(lvl), (crop, crop))
+    port32 = [d.double().numpy() for d in roi.roi_align_bwd(T(g), *args)]
+    exact = [d.numpy() for d in roi.multilevel_gather_bwd_plain(T(g).double(), *args)]
+    top = max(np.abs(e).max() for e in exact)
+
+    def err(xs, ys):
+        return max(np.abs(x - y).max() for x, y in zip(xs, ys)) / top
+
+    assert err(port32, exact) <= 1e-5 and err(jax32, exact) <= 1e-5
+    assert err(port32, jax32) <= 1e-7
+
+
+@pytest.mark.parametrize("crop", [7, 14])
+@pytest.mark.parametrize("channels", [1, 256, 1586, 1587, 4096])
+def test_bwd_channel_chunks_fit_shared_memory_and_cover_the_channels(channels, crop):
+    chunks = roi.bwd_channel_chunks(channels, (crop, crop))
+    assert chunks[0][0] == 0 and chunks[-1][1] == channels
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(c1 > c0 and roi.bwd_shared_bytes(c1 - c0, (crop, crop)) <= 200 * 1024
+               for c0, c1 in chunks)
+    # one chunk while the whole map fits (up to 1,586 channels at 7², 1,572 at 14²)
+    fits = roi.bwd_shared_bytes(channels, (crop, crop)) <= 200 * 1024
+    assert (len(chunks) == 1) == fits
+    assert fits == (channels <= {7: 1586, 14: 1572}[crop])
+
+
 @pytest.mark.parametrize("crop", [7, 14, 1])
 def test_roi_align_plain_backward_matches_autograd_of_plain_forward(crop):
     rng = np.random.RandomState(20 + crop)
