@@ -38,12 +38,20 @@ clock with ``--device cpu``, where the kernels' plain versions run; each
 table names its device. Each row of a sweep also holds the function it
 timed (``fn``) and the arguments it timed it on (``args``), so that a
 caller can check those very results.
+
+``--trace`` adds, under each route, the device kernels it launched as
+``torch.profiler`` records them (:func:`kernel_trace`): launches and device
+ms per call, grid, block, registers per thread, shared memory per block,
+and the profiler's estimate of the achieved occupancy.
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import json
+import os
+import tempfile
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -52,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from ..inference import resolve_device
+from ..ops import cuda_build
 from ..ops import roi_align as roi_ops
 from ..ops.window_sum import window_sum
 
@@ -297,6 +306,56 @@ def window(batch: int = 8, size: int = 256, boxes: int = 4096, reps: int = 5, de
     return rows
 
 
+# what the profiler's trace records of each kernel launch, as kernel_trace names it
+TRACE_ARGS = {"grid": "grid", "block": "block", "registers": "registers per thread",
+              "shared_bytes": "shared memory", "blocks_per_sm": "blocks per SM",
+              "occupancy_pct": "est. achieved occupancy %"}
+
+
+def kernel_trace(fn: Callable[[], object], reps: int, device) -> List[Dict[str, object]]:
+    """The device kernels of ``reps`` calls of ``fn`` under ``torch.profiler``
+    (after a warm-up call), one row per kernel name, largest time first:
+    ``launches`` and ``ms`` per call of ``fn``, and its last launch's
+    ``TRACE_ARGS`` from the profiler's Chrome trace (written under the
+    repository's ``build/`` and removed). Empty off the card."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return []
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(dev)
+    cuda_build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR.parent) as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    rows: Dict[str, Dict[str, object]] = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        row = rows.setdefault(e["name"], {"name": e["name"], "launches": 0, "ms": 0.0})
+        row["launches"] += 1 / reps
+        row["ms"] += e.get("dur", 0.0) / 1e3 / reps
+        row.update({k: e.get("args", {}).get(v) for k, v in TRACE_ARGS.items()})
+    return sorted(rows.values(), key=lambda r: -r["ms"])
+
+
+def print_trace(rows: List[Dict[str, object]]) -> None:
+    if not rows:
+        print("    no device kernels (not measured off the card)")
+    for k in rows:
+        print(f"    {k['ms']:10.4f} ms  {k['launches']:g} launches  grid {k['grid']} "
+              f"block {k['block']}  {k['registers']} registers  {k['shared_bytes']} B shared  "
+              f"{k['blocks_per_sm']} blocks/SM  occupancy est. {k['occupancy_pct']}%  "
+              f"{k['name'][:80]}")
+
+
 def device_name(device) -> str:
     dev = torch.device(device)
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu (host clock)"
@@ -321,6 +380,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
                    help="map (crop, window) or image (stage, bwd) side")
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    p.add_argument("--trace", action="store_true",
+                   help="print each route's device kernels from torch.profiler")
     args = p.parse_args(argv)
     fn = {"crop": crop, "stage": stage, "window": window, "bwd": bwd}[args.command]
     kwargs = {k: v for k, v in (("batch", args.batch), ("boxes", args.boxes),
@@ -328,6 +389,12 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
     device = resolve_device(args.device)
     rows = fn(reps=args.reps, device=device, **kwargs)
     print_table(args.command, rows, device)
+    if args.trace:
+        with torch.no_grad():
+            for r in rows:
+                print(f"  {r['route']} kernels per call:")
+                r["trace"] = kernel_trace(lambda: r["fn"](*r["args"]), args.reps, device)
+                print_trace(r["trace"])
     return rows
 
 
