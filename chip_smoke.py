@@ -60,7 +60,13 @@ Phases, each of which must pass:
    extrapolation -1.5 on out-of-range and inverted boxes, and the gradient
    of ``crop_and_resize_fused`` on the card against the CPU's within 1e-5
    of its largest value, on the sweep's maps and on a 3-channel image of
-   odd width (map rows that are not 16-byte aligned);
+   odd width (map rows that are not 16-byte aligned); K5 one float at a
+   time (that image, a 6-channel map, a 256-channel map 4 bytes off a
+   16-byte boundary) at crops 7², 1² and 5x9 within 1e-5; K3 on a
+   2,048-channel map (two channel chunks): the fused gradient card against
+   CPU within 1e-5 of its largest value, and bit-equal to one call per half
+   of the channels; K5's launches at both sweeps' shapes under
+   torch.profiler (registers, shared memory, estimated occupancy);
 10. window_probe: the ``window`` sweep (K6 on a [8, 256, 256, 256] bf16 map
    at 4096 windows of 8x8 to 64x64), each size against its plain version
    on the timed map and origins within 1e-5 of the windows' sums of
@@ -1078,9 +1084,10 @@ def main() -> int:
         against its plain version on the very tensors it was timed on (K4
         and K5 at the ``crop`` shapes, K5 on the ``stage`` P4 map, K1 at the
         ``stage`` 7² and 14² poolings), K4 with a non-zero extrapolation on
-        out-of-range and inverted boxes, and the gradient of
+        out-of-range and inverted boxes, the gradient of
         ``crop_and_resize_fused`` on the card against the CPU, on the sweep's
-        maps and on a 3-channel image of odd width."""
+        maps and on a 3-channel image of odd width; K5 one float at a time;
+        K3 in channel chunks; K5's launches under the profiler."""
         cuda_build.launches.clear()
         crop_rows = profile_roi.crop(batch=8, boxes=1024, size=256, reps=5, device="cuda")
         with Recorder(roi_ops, "roi_align_fwd") as stage_k1:
@@ -1203,6 +1210,72 @@ def main() -> int:
                 f"(max |grad| {top:.4g})")
             require(g_err <= 1e-5, f"the fused gradient differs by {g_err} of its largest "
                     f"value ({label})")
+
+        # K5 one float at a time: map rows that do not start on 16-byte
+        # boundaries (the RGB image, a 6-channel map) and a 256-channel map
+        # that starts 4 bytes off one, at the wild boxes' crops
+        six = torch.randn((2, 24, 37, 6), device="cuda", generator=g)
+        off = torch.empty(2 * 20 * 24 * 256 + 1, device="cuda")[1:].view(2, 20, 24, 256)
+        off.normal_(generator=g)
+        k5_err = 0.0
+        for label, img, bx in (("3 channels, 51 wide", rgb, rgb_boxes),
+                               ("6 channels", six, wild[:2, :64].contiguous()),
+                               ("256 channels, 4 bytes off", off, wild[:2, :64].contiguous())):
+            width = roi_ops.mm_vector_width(img)
+            for crop_w in ((7, 7), (1, 1), (5, 9)):
+                got = roi_ops.crop_and_resize_grouped_mm(img, bx, crop_w)
+                want = roi_ops.crop_and_resize_grouped_mm_plain(img, bx, crop_w)
+                torch.cuda.synchronize()
+                e = float((got - want).abs().max())
+                k5_err = max(k5_err, e)
+                log(f"  crop_and_resize_grouped_mm {label}, {width} float(s) at a time, "
+                    f"crop {crop_w}: err {e:.3g} against its plain version")
+            require(width == 1, f"K5 reads {width} floats at a time on {label}")
+        require(k5_err <= 1e-5, f"K5 differs from its plain version by {k5_err} one float "
+                f"at a time")
+        fold_err("crop_and_resize_grouped_mm", k5_err)
+
+        # K3 on a map wider than one launch's shared-memory tile: the fused
+        # gradient of 2,048 channels at 7², card against the CPU, then the
+        # chunked call against one call per half of the channels, bit-equal
+        wide = torch.randn((2, 24, 40, 2048), device="cuda", generator=g)
+        wide_boxes = rgb_boxes[:, :48].contiguous()
+        grads = []
+        for dev in ("cuda", "cpu"):
+            x = wide.detach().to(dev).requires_grad_(True)
+            out = roi_ops.crop_and_resize_fused(x, wide_boxes.to(dev), (7, 7))
+            (out * out).sum().backward()
+            grads.append(x.grad.cpu())
+        top = float(grads[1].abs().max())
+        g_err = float((grads[0] - grads[1]).abs().max()) / max(top, 1e-30)
+        flat = wide_boxes.reshape(-1, 4)
+        idx = torch.arange(2, dtype=torch.int32, device="cuda").repeat_interleave(48)
+        level = torch.zeros_like(idx)
+        gw = torch.randn((96, 7, 7, 2048), device="cuda", generator=g)
+        cuda_build.launches.clear()
+        (full,) = roi_ops.roi_align_bwd(gw, [tuple(wide.shape)], flat, idx, level, (7, 7))
+        chunk_launches = cuda_build.launches["roi_align_bwd"]
+        halves = [roi_ops.roi_align_bwd(gw[..., c0:c0 + 1024].contiguous(), [(2, 24, 40, 1024)],
+                                        flat, idx, level, (7, 7))[0] for c0 in (0, 1024)]
+        same = torch.equal(full, torch.cat(halves, -1))
+        log(f"  roi_align_bwd at 2048 channels, 7x7: fused gradient card vs CPU rel err "
+            f"{g_err:.3g} (max |grad| {top:.4g}); {chunk_launches} launches over "
+            f"{roi_ops.bwd_channel_chunks(2048, (7, 7))}, bit-equal to one call per half {same}")
+        require(g_err <= 1e-5, f"the 2,048-channel fused gradient differs by {g_err}")
+        require(same and chunk_launches == 2, "the chunked backward differs from its halves")
+        fold_err("roi_align_bwd", g_err * top)
+
+        # where K5's time goes: its launches at the crop and stage shapes
+        for r in (route["crop_and_resize_grouped_mm"], stage_k5):
+            with torch.no_grad():
+                trace = profile_roi.kernel_trace(lambda: r["fn"](*r["args"]), 5, "cuda")
+            log(f"  {r['route']}: the host enqueues a call in {trace['host_ms']:.4f} ms; "
+                f"under torch.profiler:")
+            for k in trace["kernels"]:
+                log(f"    {k['ms']:.4f} ms, {k['launches']:g} launches, grid {k['grid']}, "
+                    f"block {k['block']}, {k['registers']} registers, {k['shared_bytes']} B "
+                    f"shared, {k['blocks_per_sm']} blocks/SM, occupancy est. "
+                    f"{k['occupancy_pct']}%: {k['name'][:80]}")
 
     phase("roi_single", roi_single)
 

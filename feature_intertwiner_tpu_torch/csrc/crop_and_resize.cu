@@ -34,20 +34,38 @@
 // Design. K4: one block per (image, tile of kBoxTile boxes, sample row);
 // the threads run over (sample column, channel) with the channel fastest,
 // so every tap row is read coalesced, and the ragged edge of the box tile
-// is masked. K5: one block per (box, channel tile); for each sample row the
-// block writes the y-interpolated row over the box's x-tap span into shared
-// memory, then takes the x pass from there. The channel tile is chosen by
-// the caller so that W * tile floats fit the dynamic shared memory.
+// is masked. K5: the TPU kernel's two products keep the zeros of a [crop,
+// W] interpolation matrix, which cost nothing on the MXU; on the card every
+// column between a box's taps would be a load. So K5 reads only the taps:
+// a block takes a few consecutive boxes (image-major, so that one image's
+// map is read while it is in L2; enough boxes for about kMmVectors output
+// vectors), computes their crop_h y taps and crop_w x taps once into
+// shared memory (16 bytes each), and after one barrier its threads run
+// over (box, sample row, sample column, group of V channels) with the
+// channels fastest. Each thread loads its four taps top[lo_x], top[hi_x],
+// bot[lo_x], bot[hi_x] as V-float vectors, takes the y pass of each tap
+// column and then the x pass in registers, and writes one vector with a
+// streaming store, so that the crops do not evict the map from L2. V is 4
+// when the channel count is a multiple of 4 and both the image and the
+// crops start on 16-byte boundaries, else 1 (the caller chooses; the entry
+// checks). No map row is kept in shared memory, so K5 takes any map width
+// and channel count.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
 constexpr int kBoxTile = 8;
 constexpr int kThreads = 256;
+constexpr int kMmVectors = 2048;         // K5: output vectors a block aims at
+constexpr int kMmBoxes = 32;             // K5: most boxes per block
+constexpr int kMmTapBytes = 48 * 1024;   // K5: most shared memory for the taps
 
-struct Axis {
+struct __align__(16) Axis {
   int lo;
   int hi;
   float frac;
@@ -119,87 +137,73 @@ __global__ void crop_and_resize_kernel(const float* __restrict__ image,
   }
 }
 
-__global__ void crop_and_resize_mm_kernel(const float* __restrict__ image,
-                                          const float* __restrict__ boxes,
-                                          int nb, int h, int w, int c,
-                                          int c_tile, int crop_h, int crop_w,
-                                          float* __restrict__ out) {
-  extern __shared__ float rows[];  // [span, c_tile]
-  __shared__ int span_lo, span_hi;
-  const int n = blockIdx.x;  // flat box index b * nb + k
-  const int b = n / nb;
-  const int c0 = blockIdx.y * c_tile;
-  const int ct = min(c_tile, c - c0);  // the ragged last channel tile
+__device__ __forceinline__ float lerp2(float a, float b, float wa, float wb) {
+  return __fadd_rn(__fmul_rn(wa, a), __fmul_rn(wb, b));
+}
+
+__device__ __forceinline__ float4 lerp2(float4 a, float4 b, float wa, float wb) {
+  return make_float4(lerp2(a.x, b.x, wa, wb), lerp2(a.y, b.y, wa, wb),
+                     lerp2(a.z, b.z, wa, wb), lerp2(a.w, b.w, wa, wb));
+}
+
+// T is float (V = 1) or float4 (V = 4); cv = channels / V. Boxes
+// [first, first + per_block) of the flat [b * nb] list; taps holds each
+// box's crop_h y taps, then its crop_w x taps.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+crop_and_resize_mm_kernel(const T* __restrict__ image, const float* __restrict__ boxes,
+                          int total, int nb, int h, int w, int cv, int crop_h, int crop_w,
+                          int per_block, T* __restrict__ out) {
+  extern __shared__ Axis taps[];
+  const int first = blockIdx.x * per_block;
+  const int count = min(per_block, total - first);
+  const int stride = crop_h + crop_w;
   const float hm1 = (float)h - 1.0f;
   const float wm1 = (float)w - 1.0f;
-  const float y1 = boxes[4 * (size_t)n + 0], x1 = boxes[4 * (size_t)n + 1];
-  const float y2 = boxes[4 * (size_t)n + 2], x2 = boxes[4 * (size_t)n + 3];
-  const float* img = image + (size_t)b * h * w * c + c0;
-  float* dst = out + (size_t)n * crop_h * crop_w * c + c0;
-
-  // the columns the valid x samples tap
-  if (threadIdx.x == 0) {
-    int lo = w, hi = -1;
-    for (int j = 0; j < crop_w; ++j) {
-      const Axis ax = axis_taps(sample_pos(x1, x2, crop_w, j, wm1), wm1);
-      if (ax.valid) {
-        lo = min(lo, ax.lo);
-        hi = max(hi, ax.hi);
-      }
-    }
-    span_lo = lo;
-    span_hi = hi;
+  for (int e = threadIdx.x; e < count * stride; e += blockDim.x) {
+    const int u = e / stride;
+    const int s = e - u * stride;
+    const float* box = boxes + 4 * ((size_t)first + u);
+    taps[e] = s < crop_h
+                  ? axis_taps(sample_pos(box[0], box[2], crop_h, s, hm1), hm1)
+                  : axis_taps(sample_pos(box[1], box[3], crop_w, s - crop_h, wm1), wm1);
   }
   __syncthreads();
-  const int lo_col = span_lo;
-  const int span = span_hi - span_lo + 1;  // <= 0 when no x sample is valid
 
-  for (int i = 0; i < crop_h; ++i) {
-    const Axis ay = axis_taps(sample_pos(y1, y2, crop_h, i, hm1), hm1);
-    const bool row_valid = ay.valid && span > 0;
-    if (row_valid) {
-      // y pass over the span: (1 - fy) * img[lo] + fy * img[hi]; one tap
-      // with weight 1 when lo == hi
-      const float* top = img + (size_t)ay.lo * w * c;
-      const float* bot = img + (size_t)ay.hi * w * c;
-      const float wt = __fsub_rn(1.0f, ay.frac);
-      for (int e = threadIdx.x; e < span * ct; e += blockDim.x) {
-        const int x = e / ct;
-        const int ch = e - x * ct;
-        const size_t off = (size_t)(lo_col + x) * c + ch;
-        float r;
-        if (ay.lo == ay.hi) {
-          r = __ldg(top + off);
-        } else {
-          r = __fadd_rn(__fmul_rn(wt, __ldg(top + off)),
-                        __fmul_rn(ay.frac, __ldg(bot + off)));
-        }
-        rows[e] = r;
-      }
+  const int row = crop_w * cv;  // vectors per sample row
+  const int per_box = crop_h * row;
+  T* dst = out + (size_t)first * per_box;
+  for (int e = threadIdx.x; e < count * per_box; e += blockDim.x) {
+    const int u = e / per_box;
+    int r = e - u * per_box;
+    const int i = r / row;
+    r -= i * row;
+    const int j = r / cv;
+    const int k = r - j * cv;
+    const Axis ay = taps[u * stride + i];
+    const Axis ax = taps[u * stride + crop_h + j];
+    T v{};
+    if (ay.valid && ax.valid) {
+      const T* img = image + (size_t)((first + u) / nb) * h * w * cv + k;
+      const T* top = img + (size_t)ay.lo * w * cv;
+      const T* bot = img + (size_t)ay.hi * w * cv;
+      const size_t xl = (size_t)ax.lo * cv;
+      const size_t xr = (size_t)ax.hi * cv;
+      // the four taps load together; a tap that repeats (lo == hi) reads
+      // the same address again
+      const T tl = __ldg(top + xl);
+      const T tr = __ldg(top + xr);
+      const T bl = __ldg(bot + xl);
+      const T br = __ldg(bot + xr);
+      // y pass of each tap column: (1 - fy) * top + fy * bot, the top tap
+      // alone (weight exactly 1) when lo == hi; then the same along x
+      const bool one_y = ay.lo == ay.hi;
+      const float wy = __fsub_rn(1.0f, ay.frac);
+      const T rl = one_y ? tl : lerp2(tl, bl, wy, ay.frac);
+      const T rr = one_y ? tr : lerp2(tr, br, wy, ay.frac);
+      v = ax.lo == ax.hi ? rl : lerp2(rl, rr, __fsub_rn(1.0f, ax.frac), ax.frac);
     }
-    __syncthreads();
-    // x pass from shared memory
-    float* drow = dst + (size_t)i * crop_w * c;
-    for (int e = threadIdx.x; e < crop_w * ct; e += blockDim.x) {
-      const int j = e / ct;
-      const int ch = e - j * ct;
-      float v = 0.0f;
-      if (row_valid) {
-        const Axis ax = axis_taps(sample_pos(x1, x2, crop_w, j, wm1), wm1);
-        if (ax.valid) {
-          const float rl = rows[(ax.lo - lo_col) * ct + ch];
-          if (ax.lo == ax.hi) {
-            v = rl;
-          } else {
-            const float rr = rows[(ax.hi - lo_col) * ct + ch];
-            v = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, ax.frac), rl),
-                          __fmul_rn(ax.frac, rr));
-          }
-        }
-      }
-      drow[(size_t)j * c + ch] = v;
-    }
-    __syncthreads();  // rows is rewritten by the next sample row
+    __stcs(dst + e, v);
   }
 }
 
@@ -225,33 +229,39 @@ extern "C" int crop_and_resize_grouped(const float* image, const float* boxes,
   return (int)cudaGetLastError();
 }
 
-// As crop_and_resize_grouped, extrapolation 0. c_tile channels per block:
-// w * c_tile floats of dynamic shared memory, at most 227 KB.
-extern "C" int crop_and_resize_grouped_mm(const float* image,
-                                          const float* boxes, int b, int nb,
-                                          int h, int w, int c, int c_tile,
-                                          int crop_h, int crop_w, float* out,
-                                          void* stream) {
-  if (b < 1 || h < 1 || w < 1 || c < 1 || c_tile < 1 || crop_h < 1 ||
-      crop_w < 1) {
+// As crop_and_resize_grouped, extrapolation 0, read vec (1 or 4) floats at
+// a time: vec 4 needs c % 4 == 0 and image and out on 16-byte boundaries.
+extern "C" int crop_and_resize_grouped_mm(const float* image, const float* boxes, int b,
+                                          int nb, int h, int w, int c, int vec, int crop_h,
+                                          int crop_w, float* out, void* stream) {
+  if (b < 1 || h < 1 || w < 1 || c < 1 || crop_h < 1 || crop_w < 1 ||
+      (vec != 1 && vec != 4)) {
     return (int)cudaErrorInvalidValue;
   }
+  const uintptr_t at = reinterpret_cast<uintptr_t>(image) | reinterpret_cast<uintptr_t>(out);
+  if (vec == 4 && ((c & 3) != 0 || (at & 15) != 0)) return (int)cudaErrorInvalidValue;
   if (nb == 0) return 0;
-  const size_t smem = (size_t)w * c_tile * sizeof(float);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        crop_and_resize_mm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long boxes_total = (long long)b * nb;
-  const int tiles = (c + c_tile - 1) / c_tile;
-  if (boxes_total > 2147483647LL || tiles > 65535) {
+  const long long total = (long long)b * nb;
+  const int cv = c / vec;
+  const long long per_box = (long long)crop_h * crop_w * cv;
+  const long long stride = (long long)crop_h + crop_w;
+  // boxes per block: about kMmVectors output vectors, at most kMmBoxes
+  // boxes, their taps within kMmTapBytes of shared memory
+  long long per_block = std::min<long long>(kMmBoxes, std::max(1LL, kMmVectors / per_box));
+  per_block = std::min<long long>(per_block, kMmTapBytes / (stride * (long long)sizeof(Axis)));
+  if (total > INT_MAX || per_block < 1 || per_box * per_block > INT_MAX) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((unsigned)boxes_total, (unsigned)tiles);
-  crop_and_resize_mm_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      image, boxes, nb, h, w, c, c_tile, crop_h, crop_w, out);
+  const unsigned blocks = (unsigned)((total + per_block - 1) / per_block);
+  const size_t smem = (size_t)(per_block * stride) * sizeof(Axis);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec == 4) {
+    crop_and_resize_mm_kernel<float4><<<blocks, kThreads, smem, st>>>(
+        reinterpret_cast<const float4*>(image), boxes, (int)total, nb, h, w, cv, crop_h,
+        crop_w, (int)per_block, reinterpret_cast<float4*>(out));
+  } else {
+    crop_and_resize_mm_kernel<float><<<blocks, kThreads, smem, st>>>(
+        image, boxes, (int)total, nb, h, w, cv, crop_h, crop_w, (int)per_block, out);
+  }
   return (int)cudaGetLastError();
 }

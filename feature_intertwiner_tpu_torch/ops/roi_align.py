@@ -709,7 +709,7 @@ def _check_grouped(name: str, image: torch.Tensor, boxes: torch.Tensor) -> None:
 
 
 # The C entry points' parameters between the shapes and the output:
-# K4 (crop_h, crop_w, extrapolation), K5 (channel tile, crop_h, crop_w).
+# K4 (crop_h, crop_w, extrapolation), K5 (vector width, crop_h, crop_w).
 _GROUPED_PARAMS = {
     "crop_and_resize_grouped": [ctypes.c_int, ctypes.c_int, ctypes.c_float],
     "crop_and_resize_grouped_mm": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
@@ -757,25 +757,17 @@ def crop_and_resize_grouped(image: torch.Tensor, boxes: torch.Tensor,
                            float(extrapolation_value))
 
 
-SHARED_BYTES = 96 * 1024  # K5's shared-memory budget per block
-
-
-def mm_channel_tile(width: int, channels: int) -> int:
-    """K5's channel tile: the largest power of two up to 128 (and up to the
-    channel count) whose ``width x tile`` float32 row fits SHARED_BYTES."""
-    tile = 128
-    while tile > 1 and (tile >= 2 * channels or width * tile * 4 > SHARED_BYTES):
-        tile //= 2
-    if width * tile * 4 > SHARED_BYTES:
-        raise ValueError(f"crop_and_resize_grouped_mm: a map {width} wide does not fit "
-                         "shared memory")
-    return tile
+def mm_vector_width(image: torch.Tensor) -> int:
+    """Floats K5 reads and writes at a time: 4 when the channel count is a
+    multiple of 4 and the image starts on a 16-byte boundary (every map row
+    then does, and the crops the wrapper allocates always do), else 1."""
+    return 4 if image.shape[-1] % 4 == 0 and image.data_ptr() % 16 == 0 else 1
 
 
 def crop_and_resize_grouped_mm(image: torch.Tensor, boxes: torch.Tensor,
                                crop_size: Tuple[int, int]) -> torch.Tensor:
     """The same crop as :func:`crop_and_resize_grouped` with extrapolation 0,
-    as two separable interpolation passes.
+    as two separable interpolation passes, any map width and channel count.
 
     Kernel wrapper: on CUDA tensors it launches the second entry point of
     ``csrc/crop_and_resize.cu`` (which replaces ``feature_intertwiner_tpu/
@@ -787,8 +779,8 @@ def crop_and_resize_grouped_mm(image: torch.Tensor, boxes: torch.Tensor,
     crop = tuple(int(v) for v in crop_size)
     if image.device.type == "cpu":
         return crop_and_resize_grouped_mm_plain(image, boxes, crop)
-    tile = mm_channel_tile(image.shape[2], image.shape[3])
-    return _launch_grouped("crop_and_resize_grouped_mm", image, boxes, crop, tile, *crop)
+    return _launch_grouped("crop_and_resize_grouped_mm", image, boxes, crop,
+                           mm_vector_width(image), *crop)
 
 
 class CropAndResizeFused(torch.autograd.Function):

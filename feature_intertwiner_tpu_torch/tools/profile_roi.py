@@ -39,10 +39,11 @@ table names its device. Each row of a sweep also holds the function it
 timed (``fn``) and the arguments it timed it on (``args``), so that a
 caller can check those very results.
 
-``--trace`` adds, under each route, the device kernels it launched as
-``torch.profiler`` records them (:func:`kernel_trace`): launches and device
-ms per call, grid, block, registers per thread, shared memory per block,
-and the profiler's estimate of the achieved occupancy.
+``--trace`` adds, under each route, the host's time to enqueue one call
+and the device kernels it launched as ``torch.profiler`` records them
+(:func:`kernel_trace`): launches and device ms per call, grid, block,
+registers per thread, shared memory per block, and the profiler's estimate
+of the achieved occupancy.
 """
 
 from __future__ import annotations
@@ -312,18 +313,27 @@ TRACE_ARGS = {"grid": "grid", "block": "block", "registers": "registers per thre
               "occupancy_pct": "est. achieved occupancy %"}
 
 
-def kernel_trace(fn: Callable[[], object], reps: int, device) -> List[Dict[str, object]]:
-    """The device kernels of ``reps`` calls of ``fn`` under ``torch.profiler``
-    (after a warm-up call), one row per kernel name, largest time first:
-    ``launches`` and ``ms`` per call of ``fn``, and its last launch's
-    ``TRACE_ARGS`` from the profiler's Chrome trace (written under the
-    repository's ``build/`` and removed). Empty off the card."""
+def kernel_trace(fn: Callable[[], object], reps: int, device) -> Dict[str, object]:
+    """Where a call of ``fn`` spends its time on the card, after a warm-up
+    call: ``host_ms``, the host clock's time to enqueue one call (the mean
+    of ``reps`` calls, no synchronisation between them; the card is the
+    limit where its kernels take longer), and ``kernels``, the device
+    kernels of ``reps`` calls under ``torch.profiler``, one row per kernel
+    name, largest time first: ``launches`` and ``ms`` per call of ``fn``,
+    and its last launch's ``TRACE_ARGS`` from the profiler's Chrome trace
+    (written under the repository's ``build/`` and removed). ``None`` and
+    no kernels off the card."""
     dev = torch.device(device)
     if dev.type != "cuda":
-        return []
+        return {"host_ms": None, "kernels": []}
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -343,13 +353,15 @@ def kernel_trace(fn: Callable[[], object], reps: int, device) -> List[Dict[str, 
         row["launches"] += 1 / reps
         row["ms"] += e.get("dur", 0.0) / 1e3 / reps
         row.update({k: e.get("args", {}).get(v) for k, v in TRACE_ARGS.items()})
-    return sorted(rows.values(), key=lambda r: -r["ms"])
+    return {"host_ms": host_ms, "kernels": sorted(rows.values(), key=lambda r: -r["ms"])}
 
 
-def print_trace(rows: List[Dict[str, object]]) -> None:
-    if not rows:
+def print_trace(trace: Dict[str, object]) -> None:
+    if not trace["kernels"]:
         print("    no device kernels (not measured off the card)")
-    for k in rows:
+        return
+    print(f"    host {trace['host_ms']:.4f} ms to enqueue one call")
+    for k in trace["kernels"]:
         print(f"    {k['ms']:10.4f} ms  {k['launches']:g} launches  grid {k['grid']} "
               f"block {k['block']}  {k['registers']} registers  {k['shared_bytes']} B shared  "
               f"{k['blocks_per_sm']} blocks/SM  occupancy est. {k['occupancy_pct']}%  "

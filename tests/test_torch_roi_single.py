@@ -186,13 +186,22 @@ def test_wrappers_run_plain_on_the_cpu_and_check_their_arguments():
         window_sum(image.to("meta"), origins.to("meta"), 2, 2)
 
 
-def test_mm_channel_tile_fits_shared_memory():
-    assert ra.mm_channel_tile(256, 256) == 64
-    assert ra.mm_channel_tile(64, 256) == 128
-    assert ra.mm_channel_tile(20, 8) == 8
-    assert ra.mm_channel_tile(20, 3) == 4
-    with pytest.raises(ValueError):
-        ra.mm_channel_tile(40000, 256)
+def _map_at(offset_floats, channels, h=4, w=5):
+    """A contiguous [1, h, w, channels] float32 map that starts
+    ``offset_floats`` floats into a fresh buffer."""
+    n = h * w * channels
+    return torch.zeros(n + offset_floats)[offset_floats:].view(1, h, w, channels)
+
+
+@pytest.mark.parametrize("offset, channels, width", [
+    (0, 256, 4), (4, 8, 4),            # 16-byte aligned rows
+    (0, 3, 1), (0, 6, 1),              # rows that start anywhere
+    (1, 256, 1)])                      # a view 4 bytes off a 16-byte boundary
+def test_mm_vector_width(offset, channels, width):
+    image = _map_at(offset, channels)
+    assert image.is_contiguous() and image.shape[-1] == channels
+    assert (image.data_ptr() % 16 == 0) == (offset % 4 == 0)
+    assert ra.mm_vector_width(image) == width
 
 
 # --- tools/profile_roi.py ------------------------------------------------------------
@@ -224,6 +233,14 @@ def test_profile_roi_runs_small_on_the_cpu(command, capsys):
         assert "(K6) 8x8" in routes and "(K6) 32x32" in routes and "(K6) 64x64" not in routes
         assert all(r["GB/s"] > 0 for r in rows)
         assert "row_gather_checksum 784 rows" in routes
+
+
+def test_profile_roi_trace_measures_nothing_off_the_card(capsys):
+    rows = profile_roi.main(["crop", "--device", "cpu", "--batch", "1", "--boxes", "8",
+                             "--size", "16", "--reps", "1", "--trace"])
+    assert len(rows) == 4
+    assert all(r["trace"] == {"host_ms": None, "kernels": []} for r in rows)
+    assert capsys.readouterr().out.count("no device kernels (not measured off the card)") == 4
 
 
 def test_profile_roi_defaults_to_the_gpu(monkeypatch):
