@@ -1088,6 +1088,8 @@ def main() -> int:
         ``crop_and_resize_fused`` on the card against the CPU, on the sweep's
         maps and on a 3-channel image of odd width; K5 one float at a time;
         K3 in channel chunks; K5's launches under the profiler."""
+        import torch.nn.functional as F
+
         cuda_build.launches.clear()
         crop_rows = profile_roi.crop(batch=8, boxes=1024, size=256, reps=5, device="cuda")
         with Recorder(roi_ops, "roi_align_fwd") as stage_k1:
@@ -1134,23 +1136,42 @@ def main() -> int:
         require(k1_err <= 1e-5, f"K1 differs from its plain version by {k1_err} in the stage sweep")
         fold_err("roi_align_fwd", k1_err)
 
+        def k45_bound(image, boxes, crop):
+            """K4's and K5's least time on one call, as (bytes, distinct tap
+            rows, fp32 operations, ms). The bytes are the distinct tap rows
+            that valid samples read, the boxes, and the crops written once;
+            the operations per value the y-lerp of two tap columns (3 each)
+            and the 2-tap x product (4)."""
+            b, h, w, c = image.shape
+            ty, by, _, vy = roi_ops._grouped_axis(boxes[..., 0], boxes[..., 2], crop[0], h)
+            lx, rx, _, vx = roi_ops._grouped_axis(boxes[..., 1], boxes[..., 3], crop[1], w)
+            base = torch.arange(b, device="cuda")[:, None, None, None] * (h * w)
+            valid = vy[..., :, None] & vx[..., None, :]
+            rows = torch.cat([(base + y[..., :, None] * w + x[..., None, :])[valid]
+                              for y in (ty, by) for x in (lx, rx)]).unique().numel()
+            out_values = boxes.numel() // 4 * crop[0] * crop[1] * c
+            nbytes = rows * c * 4 + boxes.numel() * 4 + out_values * 4
+            ops = out_values * K45_OPS_PER_VALUE
+            return nbytes, rows, ops, max(nbytes / H100_BYTES_PER_S, ops / H100_FP32_OPS_PER_S) * 1e3
+
+        # K5 on the stage P4 map beside its plain version, its bound and
+        # grid_sample on the same map and boxes
+        p4, p4_boxes, p4_crop = stage_k5["args"]
+        s_bytes, s_rows, _, s_bound = k45_bound(p4, p4_boxes, p4_crop)
+        s_plain = cuda_ms(torch, lambda: roi_ops.crop_and_resize_grouped_mm_plain(*stage_k5["args"]),
+                          2)
+        grid = profile_roi.box_grid(p4_boxes.reshape(-1, 4), p4_crop, p4.shape[0])
+        s_lib = cuda_ms(torch, lambda: F.grid_sample(p4.permute(0, 3, 1, 2), grid, mode="bilinear",
+                                                     padding_mode="zeros", align_corners=True), 5)
+        log(f"  {stage_k5['route']}: {stage_k5['ms']:.4f} ms, plain {s_plain:.4f} ms, grid_sample "
+            f"{s_lib:.4f} ms; bound {s_bytes} bytes ({s_rows} tap rows) -> {s_bound:.6f} ms")
+
         image, boxes, crop = route["crop_and_resize_grouped"]["args"]
         g = torch.Generator(device="cuda").manual_seed(7)
         wild = (torch.rand((8, 256, 4), device="cuda", generator=g) * 1.8 - 0.4).contiguous()
-        # least bytes: the distinct tap rows that valid samples read, the
-        # boxes, the crops written once; operations: per value the y-lerp of
-        # two tap columns (3 each) and the 2-tap x product (4)
-        b, h, w, c = image.shape
-        ty, by, _, vy = roi_ops._grouped_axis(boxes[..., 0], boxes[..., 2], crop[0], h)
-        lx, rx, _, vx = roi_ops._grouped_axis(boxes[..., 1], boxes[..., 3], crop[1], w)
-        base = torch.arange(b, device="cuda")[:, None, None, None] * (h * w)
-        valid = vy[..., :, None] & vx[..., None, :]
-        rows = torch.cat([(base + y[..., :, None] * w + x[..., None, :])[valid]
-                          for y in (ty, by) for x in (lx, rx)]).unique().numel()
-        out_values = boxes.numel() // 4 * crop[0] * crop[1] * c
-        nbytes = rows * c * 4 + boxes.numel() * 4 + out_values * 4
+        nbytes, rows, ops, bound_ms = k45_bound(image, boxes, crop)
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = out_values * K45_OPS_PER_VALUE / H100_FP32_OPS_PER_S * 1e3
+        t_ops = ops / H100_FP32_OPS_PER_S * 1e3
         lib_ms = route["F.grid_sample"]["ms"]
         for name, line in (("crop_and_resize_grouped", "roi_align.py:339"),
                            ("crop_and_resize_grouped_mm", "roi_align.py:507")):
@@ -1159,8 +1180,7 @@ def main() -> int:
             p_ms = cuda_ms(torch, lambda: plains[name](*r["args"]), 2)
             log(f"  {name}: err {err:.3g}, {r['ms']:.4f} ms, plain {p_ms:.4f} ms, "
                 f"grid_sample {lib_ms:.4f} ms; bound {nbytes} bytes "
-                f"({rows} tap rows) -> {t_bytes:.6f} ms, {out_values * K45_OPS_PER_VALUE} fp32 "
-                f"ops -> {t_ops:.6f} ms")
+                f"({rows} tap rows) -> {t_bytes:.6f} ms, {ops} fp32 ops -> {t_ops:.6f} ms")
             require(err <= 1e-5, f"{name} differs from its plain version by {err}")
             if name == "crop_and_resize_grouped_mm":
                 err = max(err, stage_err)
@@ -1169,7 +1189,7 @@ def main() -> int:
                 "source": "feature_intertwiner_tpu_torch/csrc/crop_and_resize.cu",
                 "replaces": f"feature_intertwiner_tpu/ops/{line}",
                 "launches": launches[name], "max_abs_err": err, "ms": r["ms"],
-                "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
+                "plain_ms": p_ms, "bound_ms": bound_ms,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": lib_ms})
         for crop_w in ((7, 7), (1, 1), (5, 9)):

@@ -319,13 +319,15 @@ def kernel_trace(fn: Callable[[], object], reps: int, device) -> Dict[str, objec
     of ``reps`` calls, no synchronisation between them; the card is the
     limit where its kernels take longer), and ``kernels``, the device
     kernels of ``reps`` calls under ``torch.profiler``, one row per kernel
-    name, largest time first: ``launches`` and ``ms`` per call of ``fn``,
-    and its last launch's ``TRACE_ARGS`` from the profiler's Chrome trace
-    (written under the repository's ``build/`` and removed). ``None`` and
-    no kernels off the card."""
+    name, largest time first: ``launches`` and ``ms`` per call of ``fn``
+    (from ``key_averages``), and the ``TRACE_ARGS`` of its last launch in
+    the profiler's Chrome trace (written under the repository's ``build/``
+    and removed), ``None`` where the trace lost it. ``None`` and no
+    kernels off the card."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return {"host_ms": None, "kernels": []}
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -346,13 +348,17 @@ def kernel_trace(fn: Callable[[], object], reps: int, device) -> Dict[str, objec
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     rows: Dict[str, Dict[str, object]] = {}
+    for e in prof.key_averages():
+        # device kernels only: the aten ops above them carry their time again
+        if (e.device_type == DeviceType.CUDA and not e.key.startswith("aten::")
+                and not getattr(e, "is_user_annotation", False)
+                and e.self_device_time_total > 0):
+            rows[e.key] = {"name": e.key, "launches": e.count / reps,
+                           "ms": e.self_device_time_total / 1e3 / reps,
+                           **dict.fromkeys(TRACE_ARGS)}
     for e in events:
-        if e.get("cat") != "kernel":
-            continue
-        row = rows.setdefault(e["name"], {"name": e["name"], "launches": 0, "ms": 0.0})
-        row["launches"] += 1 / reps
-        row["ms"] += e.get("dur", 0.0) / 1e3 / reps
-        row.update({k: e.get("args", {}).get(v) for k, v in TRACE_ARGS.items()})
+        if e.get("cat") == "kernel" and e.get("name") in rows:
+            rows[e["name"]].update({k: e.get("args", {}).get(v) for k, v in TRACE_ARGS.items()})
     return {"host_ms": host_ms, "kernels": sorted(rows.values(), key=lambda r: -r["ms"])}
 
 
