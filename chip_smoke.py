@@ -55,8 +55,9 @@ Phases, each of which must pass:
 9. roi_single: the ``crop`` sweep (B=8, 1024 boxes per image, 256² x 256,
    7²) and the ``stage`` sweep at B=8 of ``tools/profile_roi.py``, their
    launches counted from 0; then, on the very tensors each sweep timed, K4
-   and K5 at the ``crop`` shapes, K5 on the ``stage`` P4 map and K1 at its
-   7² and 14² poolings against their plain versions within 1e-5, K4 with
+   and K5 at the ``crop`` shapes, K5 on the ``stage`` P4 map (also timed
+   beside its bound, plain version and grid_sample) and K1 at its 7² and
+   14² poolings against their plain versions within 1e-5, K4 with
    extrapolation -1.5 on out-of-range and inverted boxes, and the gradient
    of ``crop_and_resize_fused`` on the card against the CPU's within 1e-5
    of its largest value, on the sweep's maps and on a 3-channel image of
@@ -1289,13 +1290,8 @@ def main() -> int:
         for r in (route["crop_and_resize_grouped_mm"], stage_k5):
             with torch.no_grad():
                 trace = profile_roi.kernel_trace(lambda: r["fn"](*r["args"]), 5, "cuda")
-            log(f"  {r['route']}: the host enqueues a call in {trace['host_ms']:.4f} ms; "
-                f"under torch.profiler:")
-            for k in trace["kernels"]:
-                log(f"    {k['ms']:.4f} ms, {k['launches']:g} launches, grid {k['grid']}, "
-                    f"block {k['block']}, {k['registers']} registers, {k['shared_bytes']} B "
-                    f"shared, {k['blocks_per_sm']} blocks/SM, occupancy est. "
-                    f"{k['occupancy_pct']}%: {k['name'][:80]}")
+            log(f"  {r['route']} kernels per call:")
+            profile_roi.print_trace(trace)
 
     phase("roi_single", roi_single)
 

@@ -363,6 +363,7 @@ def kernel_trace(fn: Callable[[], object], reps: int, device) -> Dict[str, objec
 
 
 def print_trace(trace: Dict[str, object]) -> None:
+    """Print a :func:`kernel_trace`, one line per kernel."""
     if not trace["kernels"]:
         print("    no device kernels (not measured off the card)")
         return
