@@ -54,6 +54,7 @@ import json
 import os
 import tempfile
 import time
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -322,13 +323,15 @@ def kernel_trace(fn: Callable[[], object], reps: int, device) -> Dict[str, objec
     name, largest time first: ``launches`` and ``ms`` per call of ``fn``
     (from ``key_averages``), and the ``TRACE_ARGS`` of its last launch in
     the profiler's Chrome trace (written under the repository's ``build/``
-    and removed), ``None`` where the trace lost it. ``None`` and no
-    kernels off the card."""
+    and removed), ``None`` where the trace lost it. The profiler records
+    the second of two cycles of ``reps`` calls: in a process that has
+    profiled before, a first short cycle can miss its device kernels.
+    ``None`` and no kernels off the card."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return {"host_ms": None, "kernels": []}
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize(dev)
@@ -337,18 +340,28 @@ def kernel_trace(fn: Callable[[], object], reps: int, device) -> Dict[str, objec
         fn()
     host_ms = (time.perf_counter() - t0) * 1e3 / reps
     torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize(dev)
+    recorded = {}
+
+    def ready(prof):
+        recorded["averages"] = prof.key_averages()
+        prof.export_chrome_trace(recorded["path"])
+
     cuda_build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR.parent) as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR.parent) as tmp, \
+            warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*Profiler clears events")
+        recorded["path"] = os.path.join(tmp, "trace.json")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1), on_trace_ready=ready) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize(dev)
+                prof.step()
+        with open(recorded["path"]) as f:
             events = json.load(f)["traceEvents"]
     rows: Dict[str, Dict[str, object]] = {}
-    for e in prof.key_averages():
+    for e in recorded["averages"]:
         # device kernels only: the aten ops above them carry their time again
         if (e.device_type == DeviceType.CUDA and not e.key.startswith("aten::")
                 and not getattr(e, "is_user_annotation", False)
@@ -364,10 +377,12 @@ def kernel_trace(fn: Callable[[], object], reps: int, device) -> Dict[str, objec
 
 def print_trace(trace: Dict[str, object]) -> None:
     """Print a :func:`kernel_trace`, one line per kernel."""
-    if not trace["kernels"]:
+    if trace["host_ms"] is None:
         print("    no device kernels (not measured off the card)")
         return
     print(f"    host {trace['host_ms']:.4f} ms to enqueue one call")
+    if not trace["kernels"]:
+        print("    the profiler recorded no device kernel")
     for k in trace["kernels"]:
         print(f"    {k['ms']:10.4f} ms  {k['launches']:g} launches  grid {k['grid']} "
               f"block {k['block']}  {k['registers']} registers  {k['shared_bytes']} B shared  "
