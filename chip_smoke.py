@@ -17,9 +17,13 @@ Phases, each of which must pass:
    pooling) and the NMS kernel at least twice (proposals and detections);
 4. kernels: each kernel's wrapper runs again on the tensors the main path
    gave it and is held against its plain PyTorch version on the same
-   tensors: RoIAlign within 1e-5, NMS bit for bit (plus tie-heavy and
-   padded NMS cases); each is timed beside its plain version, its bound and
-   a PyTorch yardstick;
+   tensors: RoIAlign within 1e-5, NMS bit for bit and bit-equal over two
+   launches, also on tie-heavy and padded cases, on boxes all disjoint (all
+   kept) and on copies of one box (one kept) at the proposal shape, on the
+   eval batch's [8, 6016] and on [1, 16384], whose tiles the NMS sweep
+   cannot stage whole in shared memory; each is timed beside its plain
+   version, its bound and a PyTorch yardstick, and the NMS kernel's passes
+   on the main path's calls are traced (torch.profiler);
 5. breakdown: the forward's device time by kernel family (torch.profiler)
    and the device's busy share, reported and not checked;
 6. train path: the flagship recipe trained through ``Trainer`` and
@@ -31,8 +35,9 @@ Phases, each of which must pass:
    be finite, frozen parameters bit-equal, trainable ones moved, one step
    must have positive RoIs and a non-zero meta loss, and a fresh Trainer
    must restore the same weights, momentum and buffer from the newest
-   checkpoint. Then the step time per stage (median of 5), the peak memory
-   and one 'all' step's device time by kernel family;
+   checkpoint. Every NMS call of the six steps is held bit for bit against
+   its plain version. Then the step time per stage (median of 5), the peak
+   memory and one 'all' step's device time by kernel family;
 7. kernel_roi_align_bwd: the RoIAlign backward replayed on the last train
    step's cotangents, then on two crowds at the train step's shapes (800
    slots of which 740 are the zero box; 200 distinct boxes of one image
@@ -238,6 +243,29 @@ def greedy_pairs(nms_ops, boxes, valid, alive, thr, plus_one, strict) -> int:
         count = torch.where(first == n, kept_before, kept_upto[first.clamp_max(n - 1)])
         total += int(count[valid[b]].sum())
     return total
+
+
+def nms_bound(nms_ops, calls):
+    """The least time of K2 over ``calls`` [(boxes, valid, alive, thr,
+    opts)]: (IoU pairs, fp32 operations, bytes, ms by operations, ms by
+    bytes). The operations are each needed pair's IoU and each valid box's
+    area; the bytes each box and valid flag read once, each alive flag
+    written once."""
+    pairs = n_ops = nbytes = 0
+    for boxes, valid, alive, thr, opts in calls:
+        p = greedy_pairs(nms_ops, boxes, valid, alive, thr, **opts)
+        pairs += p
+        n_ops += p * IOU_OPS_PER_PAIR + int(valid.sum()) * AREA_OPS_PER_BOX
+        nbytes += boxes.numel() * 4 + valid.numel() * 2
+    return (pairs, n_ops, nbytes, n_ops / H100_FP32_OPS_PER_S * 1e3,
+            nbytes / H100_BYTES_PER_S * 1e3)
+
+
+def call_opts(args, kwargs):
+    """``nms_alive``'s IoU options of one recorded call."""
+    opts = dict(zip(("plus_one", "strict"), args[3:]))
+    opts.update(kwargs)
+    return opts
 
 
 def k1_work(torch, roi_ops, feats, boxes, bidx, lidx, crop):
@@ -529,36 +557,56 @@ def main() -> int:
         for plus_one, strict in ((True, True), (False, False)):
             cases.append(((ties, valid.contiguous(), 0.7), {"plus_one": plus_one, "strict": strict},
                           f"ties plus_one={plus_one} strict={strict}"))
-        mism, ms, plain_ms, pairs, n_valid, nbytes = 0, 0.0, 0.0, 0, 0, 0
+        # the sweep's extremes at the proposal shape: every box disjoint from
+        # every other (all kept, 64 per tile: the most rows to OR), and copies
+        # of one 500-px box moved by at most 4 px (the first suppresses all)
+        all_valid = torch.ones((2, n), dtype=torch.bool, device="cuda")
+        cell = torch.arange(n, device="cuda")
+        side = math.ceil(math.sqrt(n))
+        y, x = (cell // side).float() * 10, (cell % side).float() * 10
+        disjoint = torch.stack([y, x, y + 8, x + 8], -1).expand(2, n, 4).contiguous()
+        one = (torch.tensor([100.0, 100.0, 600.0, 600.0], device="cuda")
+               + torch.rand((2, n, 4), device="cuda", generator=g) * 4)
+        cases += [((disjoint, all_valid, 0.7), {}, "disjoint"),
+                  ((one, all_valid, 0.7), {}, "one suppresses all")]
+        # the eval batch's proposal call, and an N whose tiles the sweep
+        # cannot double-buffer whole in shared memory (ops/nms.py::sweep_plan)
+        for batch, count in ((8, 6000), (1, 16384)):
+            bx, va = profile_roi.nms_inputs(batch, count, 1024, "cuda", seed=1)
+            cases.append(((bx, va, 0.7), {}, f"clustered, {count} boxes"))
+        mism, ms, plain_ms, needed = 0, 0.0, 0.0, []
         for args, kwargs, label in cases:
-            boxes, valid = args[0], args[1]
-            thr = args[2]
-            opts = dict(zip(("plus_one", "strict"), args[3:]))
-            opts.update(kwargs)
+            boxes, valid, thr = args[:3]
+            opts = call_opts(args, kwargs)
             got = nms_ops.nms_alive(boxes, valid, thr, **opts)
+            again = nms_ops.nms_alive(boxes, valid, thr, **opts)
             want = nms_ops.greedy_alive_sorted_plain(boxes, valid, thr, **opts)
             bad = int((got != want).sum())
             mism += bad
-            line = f"  nms_alive {label} {tuple(boxes.shape)}: {bad} mismatches, kept {int(got.sum())}"
+            require(torch.equal(got, again), f"two NMS launches differ on {label}")
+            if label == "disjoint":
+                require(bool(got.all()), "a disjoint box was suppressed")
+            if label == "one suppresses all":
+                require(int(got.sum()) == boxes.shape[0], "not exactly one box kept per image")
+            line = (f"  nms_alive {label} {tuple(boxes.shape)}: {bad} mismatches, two launches "
+                    f"bit-equal, kept {int(got.sum())}")
             if label == "main path":
                 k_ms = cuda_ms(torch, lambda: nms_ops.nms_alive(boxes, valid, thr, **opts), 20)
                 p_ms = cuda_ms(torch, lambda: nms_ops.greedy_alive_sorted_plain(boxes, valid, thr, **opts), 2)
-                p = greedy_pairs(nms_ops, boxes, valid, got, thr, **opts)
-                pairs += p
-                n_valid += int(valid.sum())
-                nbytes += boxes.numel() * 4 + valid.numel() * 2
+                needed.append((boxes, valid, got, thr, opts))
                 ms, plain_ms = ms + k_ms, plain_ms + p_ms
-                line += f", {k_ms:.4f} ms, plain {p_ms:.2f} ms, {p} IoU pairs needed"
+                line += f", {k_ms:.4f} ms, plain {p_ms:.2f} ms"
             log(line)
+            if label == "main path":
+                # the kernel's passes on this call (torch.profiler)
+                profile_roi.print_trace(profile_roi.kernel_trace(
+                    lambda: nms_ops.nms_alive(boxes, valid, thr, **opts), 10, "cuda"))
         if mism:
             raise AssertionError(f"NMS kernel differs from its plain version in {mism} rows")
-        n_ops = pairs * IOU_OPS_PER_PAIR + n_valid * AREA_OPS_PER_BOX
-        t_ops = n_ops / H100_FP32_OPS_PER_S * 1e3
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        log(f"  nms_alive bound: {pairs} IoU pairs x {IOU_OPS_PER_PAIR} ops + {n_valid} valid "
-            f"boxes x {AREA_OPS_PER_BOX} ops = {n_ops} fp32 ops -> {t_ops:.6f} ms at "
-            f"{H100_FP32_OPS_PER_S:.3g}/s; {nbytes} bytes -> {t_bytes:.6f} ms at "
-            f"{H100_BYTES_PER_S:.3g} B/s")
+        pairs, n_ops, nbytes, t_ops, t_bytes = nms_bound(nms_ops, needed)
+        log(f"  nms_alive bound per forward: {pairs} IoU pairs needed, {n_ops} fp32 ops -> "
+            f"{t_ops:.6f} ms at {H100_FP32_OPS_PER_S:.3g}/s; {nbytes} bytes -> {t_bytes:.6f} ms "
+            f"at {H100_BYTES_PER_S:.3g} B/s")
         kernels.append({
             "name": "nms_alive", "route": "cuda",
             "source": "feature_intertwiner_tpu_torch/csrc/nms.cu",
@@ -668,7 +716,8 @@ def main() -> int:
         workflow.train_step = recorded_step
         try:
             with Recorder(roi_ops, "roi_align_bwd") as bwd_rec, \
-                    Recorder(roi_ops, "roi_align_fwd") as fwd_rec:
+                    Recorder(roi_ops, "roi_align_fwd") as fwd_rec, \
+                    Recorder(nms_ops, "nms_alive") as nms_rec:
                 cuda_build.launches.clear()
                 for stage in ("heads", "4+", "all"):
                     workflow.train_model(trainer, loader, stage)
@@ -705,6 +754,22 @@ def main() -> int:
         require(any(s["positive_rois"] > 0 and s["meta_loss"] > 0 for s in steps),
                 "no step had positive RoIs and a non-zero meta loss")
         log(f"TRAIN peak memory {peak_gb:.2f} GiB (torch.cuda.max_memory_allocated)")
+        mism, needed = 0, []
+        with torch.no_grad():
+            for args, kwargs in nms_rec.calls:
+                got = nms_ops.nms_alive(*args, **kwargs)
+                want = nms_ops.greedy_alive_sorted_plain(*args, **kwargs)
+                mism += int((got != want).sum())
+                needed.append((*args[:2], want, args[2], call_opts(args, kwargs)))
+            _, _, _, t_ops, t_bytes = nms_bound(nms_ops, needed)
+        log(f"TRAIN nms_alive against its plain version on the steps' tensors: {mism} "
+            f"mismatches over {len(nms_rec.calls)} calls "
+            f"(shapes {sorted({tuple(a[0].shape) for a, _ in nms_rec.calls})}); bound per step "
+            f"{max(t_ops, t_bytes) / len(steps):.6f} ms by "
+            f"{'operations' if t_ops >= t_bytes else 'bytes'}")
+        require(mism == 0, "K2 differs from its plain version in training")
+        fold_err("nms_alive", float(mism > 0))
+        del nms_rec
 
         # resume: a fresh Trainer takes the newest checkpoint
         kept = sorted(os.listdir(os.path.join(folder, "checkpoints")))
@@ -1408,14 +1473,21 @@ def main() -> int:
                 got = roi_ops.roi_align_fwd(*args, **kwargs)
                 want = roi_ops.multilevel_gather_plain(*args, **kwargs)
                 k1_err = max(k1_err, float((got - want).abs().max()))
+            needed = []
             for args, kwargs in nms_rec.calls:
                 got = nms_ops.nms_alive(*args, **kwargs)
-                mism += int((got != nms_ops.greedy_alive_sorted_plain(*args, **kwargs)).sum())
+                want = nms_ops.greedy_alive_sorted_plain(*args, **kwargs)
+                mism += int((got != want).sum())
+                needed.append((*args[:2], want, args[2], call_opts(args, kwargs)))
+            _, _, _, t_ops, t_bytes = nms_bound(nms_ops, needed)
         torch.cuda.synchronize()
         log(f"EVAL kernels against their plain versions on the eval path's tensors: "
             f"roi_align_fwd err {k1_err:.3g} over {len(roi_rec.calls)} calls "
             f"(n={[int(a[1].shape[0]) for a, _ in roi_rec.calls]}), nms_alive {mism} "
-            f"mismatches over {len(nms_rec.calls)} calls")
+            f"mismatches over {len(nms_rec.calls)} calls "
+            f"(shapes {[tuple(a[0].shape) for a, _ in nms_rec.calls]}; bound per batch "
+            f"{max(t_ops, t_bytes) / batches:.6f} ms by "
+            f"{'operations' if t_ops >= t_bytes else 'bytes'})")
         require(k1_err <= 1e-5 and mism == 0, "K1 or K2 differs from its plain version in eval")
         fold_err("roi_align_fwd", k1_err)
         fold_err("nms_alive", float(mism > 0))

@@ -18,6 +18,7 @@ IoU conventions, as in the JAX package: ``plus_one=True`` measures a box as
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -26,6 +27,10 @@ from . import cuda_build
 
 NEG_INF = -1e30
 TILE = 64  # rows per tile of the kernel's bitmask; padded N is a multiple
+WORD_BYTES = 8  # one uint64 word of the bitmask: a row against one tile
+SHARED_BYTES = 232_448  # the shared memory one block may opt in to on the H100 (227 KB)
+STAGES = 2  # the sweep's stage buffers: a tile's run is staged one tile ahead
+LIST_BYTES = 8 * TILE  # the sweep's lists of kept rows, one a warp
 
 
 def _pairwise_iou(a: torch.Tensor, b: torch.Tensor, plus_one: bool) -> torch.Tensor:
@@ -82,6 +87,40 @@ def greedy_alive_sorted_plain(
     return alive
 
 
+def sweep_plan(n: int) -> Tuple[int, int]:
+    """The sweep kernel's staging plan for N boxes (N a multiple of
+    ``TILE``): ``(words, shared_bytes)``.
+
+    The sweep walks the ``N / TILE`` tiles in order. Each of tile c's
+    ``TILE`` rows holds one mask word for each tile from c on (its run).
+    The kernel stages the first ``words`` of each row in shared memory,
+    one tile ahead in ``STAGES`` buffers, beside its ``removed``
+    bitset (one word per tile) and its lists of kept rows, and reads the
+    rest of a run from device memory. ``words`` is every tile where whole
+    runs fit in ``SHARED_BYTES`` (up to 224 tiles, N = 14,336), else as
+    many as fit. Raises ``ValueError`` where not even the diagonal word
+    fits (N above 1,847,296)."""
+    tiles = n // TILE
+    fixed = tiles * WORD_BYTES + LIST_BYTES
+    per_word = STAGES * TILE * WORD_BYTES
+    words = min(tiles, (SHARED_BYTES - fixed) // per_word)
+    if tiles and words < 1:
+        raise ValueError(f"N={n}: the sweep's bitset leaves no room to stage a tile")
+    return words, fixed + words * per_word
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """The C entry of ``csrc/nms.cu``, built and loaded on first use, its
+    prototype set once."""
+    fn = cuda_build.load("nms").nms_alive
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    return fn
+
+
 def nms_alive(
     boxes_sorted: torch.Tensor,
     valid_sorted: torch.Tensor,
@@ -115,20 +154,17 @@ def nms_alive(
     if not (boxes_sorted.is_contiguous() and valid_sorted.is_contiguous()):
         raise ValueError("nms_alive needs contiguous boxes and valid")
 
-    lib = cuda_build.load("nms")
-    fn = lib.nms_alive
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    words, _ = sweep_plan(n)
+    tiles = n // TILE
     dev = boxes_sorted.device
-    mask = torch.empty((bsz, n, n // TILE), dtype=torch.int64, device=dev)
+    # the bitmask's upper triangle: each of tile c's rows holds words c..tiles-1
+    mask = torch.empty(bsz * TILE * tiles * (tiles + 1) // 2, dtype=torch.int64, device=dev)
     alive = torch.empty((bsz, n), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(boxes_sorted.data_ptr(), valid_sorted.data_ptr(), bsz, n,
-                 float(iou_threshold), int(plus_one), int(strict),
-                 mask.data_ptr(), alive.data_ptr(), stream)
+        err = _kernel()(boxes_sorted.data_ptr(), valid_sorted.data_ptr(), bsz, n,
+                        float(iou_threshold), int(plus_one), int(strict), words,
+                        mask.data_ptr(), alive.data_ptr(), stream)
     cuda_build.check(err, "nms_alive")
     if bsz * n > 0:  # the C entry launches nothing for no boxes
         cuda_build.launches["nms_alive"] += 1

@@ -1,9 +1,10 @@
-"""Time the port's RoI pooling kernels and its window probe.
+"""Time the port's RoI pooling kernels, its window probe and its NMS kernel.
 
     python -m feature_intertwiner_tpu_torch.tools.profile_roi crop   [flags]
     python -m feature_intertwiner_tpu_torch.tools.profile_roi stage  [flags]
     python -m feature_intertwiner_tpu_torch.tools.profile_roi window [flags]
     python -m feature_intertwiner_tpu_torch.tools.profile_roi bwd    [flags]
+    python -m feature_intertwiner_tpu_torch.tools.profile_roi nms    [flags]
 
 The port of four measuring scripts of the JAX package:
 
@@ -30,6 +31,16 @@ The port of four measuring scripts of the JAX package:
   7² and 14²: the backward kernel K3 alone, the forward K1 and K3 through
   ``roi_align`` and autograd, the plain backward, and ``grid_sample``'s
   backward into P2 for the same boxes as a yardstick.
+
+And ``nms``, which has no JAX script: the NMS kernel K2 (``nms_alive``) and
+its plain version at the shapes of the inference path's two calls, at batch
+``--batch`` (default 2; the train step runs 4, the evaluation 8): the
+proposals' ``--boxes`` boxes per image (default 6000, padded to 6016) at
+IoU threshold 0.7, and the detections' 1000 per image (padded to 1024)
+(or ``--boxes``, where fewer) in 2 classes, each class moved to an island
+of its own as ``class_aware_nms`` moves it, at 0.3, on a ``--size``² image
+(default 1024). The boxes come from ``--seed`` in clusters, so that about
+40% of the proposals survive, as on the inference path.
 
 The JAX scripts ran bfloat16 maps; K1, K3, K4 and K5 take float32 until
 the port has bfloat16 maps, and each line names the dtype it used. Times are CUDA
@@ -63,12 +74,19 @@ import torch.nn.functional as F
 
 from ..inference import resolve_device
 from ..ops import cuda_build
+from ..ops import nms as nms_ops
 from ..ops import roi_align as roi_ops
 from ..ops.window_sum import window_sum
 
 CHANNELS = 256
 WINDOW_SIZES = ((8, 8), (8, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64))
 GATHER_ROWS = (196, 784)      # the corner rows of a 7² and a 14² crop
+# The ``nms`` calls: (label, most boxes per image, IoU threshold, classes).
+# The detections' call takes the inference path's 1000 RoIs per image (or
+# ``--boxes``, where fewer); 2 classes leave about 28% of them, near the
+# inference path's 23%
+NMS_CALLS = (("proposals", None, 0.7, 0), ("detections", 1000, 0.3, 2))
+NMS_BOXES_PER_CLUSTER, NMS_JITTER = 6, 0.08
 
 
 def time_ms(fn: Callable[[], object], reps: int, device: torch.device) -> float:
@@ -308,6 +326,57 @@ def window(batch: int = 8, size: int = 256, boxes: int = 4096, reps: int = 5, de
     return rows
 
 
+def nms_inputs(batch: int, boxes: int, size: int, device, seed: int = 0, classes: int = 0):
+    """Score-sorted boxes [B, N, 4] float32 (N = ``boxes`` padded to a
+    multiple of 64) and valid [B, N] bool for ``nms_alive``: the first
+    ``boxes`` rows of each image are valid, the padding is the zero box. The
+    boxes lie in clusters of about ``NMS_BOXES_PER_CLUSTER``, each a cluster
+    box (sides 2-30% of ``size``) with its centre and sides jittered by
+    ``NMS_JITTER`` of its sides, clipped to the image; the row order stands
+    for the score order. With ``classes``, each box gets a class in
+    1..classes and moves to that class's island as ``class_aware_nms``
+    moves it."""
+    rng = np.random.RandomState(seed)
+    k = max(1, boxes // NMS_BOXES_PER_CLUSTER)
+    centre = rng.uniform(0, size, (batch, k, 2))
+    sides = size * np.exp(rng.uniform(np.log(0.02), np.log(0.3), (batch, k, 2)))
+    which = rng.randint(0, k, (batch, boxes))
+    b = np.arange(batch)[:, None]
+    hw = sides[b, which] * np.exp(rng.normal(0, NMS_JITTER, (batch, boxes, 2)))
+    mid = centre[b, which] + rng.normal(0, NMS_JITTER, (batch, boxes, 2)) * sides[b, which]
+    box = np.concatenate([mid - hw / 2, mid + hw / 2], -1).clip(0, size).astype(np.float32)
+    if classes:
+        cls = rng.randint(1, classes + 1, (batch, boxes, 1)).astype(np.float32)
+        span = np.abs(box).max(axis=(1, 2), keepdims=True) + np.float32(2.0)
+        box = box + cls * span * np.float32(4.0)
+    n = -(-boxes // nms_ops.TILE) * nms_ops.TILE
+    padded = np.zeros((batch, n, 4), np.float32)
+    padded[:, :boxes] = box
+    valid = np.zeros((batch, n), bool)
+    valid[:, :boxes] = True
+    return torch.from_numpy(padded).to(device), torch.from_numpy(valid).to(device)
+
+
+def nms(batch: int = 2, boxes: int = 6000, size: int = 1024, reps: int = 5, device=None,
+        seed: int = 0) -> List[Dict[str, object]]:
+    """The ``nms`` table: per call of the inference path, K2 and its plain
+    version on the same tensors; each row also holds ``kept``, the boxes
+    that K2's alive mask keeps."""
+    dev = resolve_device(device)
+    routes = []
+    for label, count, thr, classes in NMS_CALLS:
+        bx, va = nms_inputs(batch, min(count or boxes, boxes), size, dev, seed, classes)
+        shape = f"[{batch}, {bx.shape[1]}] thr {thr}"
+        routes += [(f"nms_alive (K2) {label} {shape}", nms_ops.nms_alive, (bx, va, thr)),
+                   (f"greedy_alive_sorted_plain {label} {shape}",
+                    nms_ops.greedy_alive_sorted_plain, (bx, va, thr))]
+    rows = timed_rows(routes, reps, dev, "float32")
+    with torch.no_grad():
+        for r in rows:
+            r["kept"] = int(r["fn"](*r["args"]).sum())
+    return rows
+
+
 # what the profiler's trace records of each kernel launch, as kernel_trace names it
 TRACE_ARGS = {"grid": "grid", "block": "block", "registers": "registers per thread",
               "shared_bytes": "shared memory", "blocks_per_sm": "blocks per SM",
@@ -401,25 +470,31 @@ def print_table(title: str, rows: List[Dict[str, object]], device) -> None:
         extra = ""
         if "bytes" in r:
             extra = f"  {r['bytes']:>13,} B  {r['GB/s']:8.1f} GB/s"
+        elif "kept" in r:
+            extra = f"  kept {r['kept']}"
         print(f"  {r['route']:64s} {r['dtype']:9s} {r['ms']:10.4f} ms{extra}")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("command", choices=["crop", "stage", "window", "bwd"])
+    p.add_argument("command", choices=["crop", "stage", "window", "bwd", "nms"])
     p.add_argument("--batch", type=int, default=None)
     p.add_argument("--boxes", type=int, default=None,
-                   help="boxes per image (crop, stage, bwd) or windows (window)")
+                   help="boxes per image (crop, stage, bwd), windows (window) or "
+                   "proposals per image (nms)")
     p.add_argument("--size", type=int, default=None,
-                   help="map (crop, window) or image (stage, bwd) side")
+                   help="map (crop, window) or image (stage, bwd, nms) side")
     p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--seed", type=int, default=0, help="the boxes' seed (nms)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     p.add_argument("--trace", action="store_true",
                    help="print each route's device kernels from torch.profiler")
     args = p.parse_args(argv)
-    fn = {"crop": crop, "stage": stage, "window": window, "bwd": bwd}[args.command]
+    fn = {"crop": crop, "stage": stage, "window": window, "bwd": bwd, "nms": nms}[args.command]
     kwargs = {k: v for k, v in (("batch", args.batch), ("boxes", args.boxes),
                                 ("size", args.size)) if v is not None}
+    if args.command == "nms":
+        kwargs["seed"] = args.seed
     device = resolve_device(args.device)
     rows = fn(reps=args.reps, device=device, **kwargs)
     print_table(args.command, rows, device)

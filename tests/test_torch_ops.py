@@ -31,8 +31,10 @@ from feature_intertwiner_tpu.ops.roi_align_window import (
     hybrid_unfit_overflow, multilevel_crop_and_resize_window)
 from feature_intertwiner_tpu_torch.ops import anchors, boxes
 from feature_intertwiner_tpu_torch.ops.detection import detection_layer
+from feature_intertwiner_tpu_torch.ops import cuda_build
 from feature_intertwiner_tpu_torch.ops.nms import (
-    batched_nms, class_aware_nms, greedy_alive_sorted_plain, nms, nms_alive)
+    LIST_BYTES, SHARED_BYTES, STAGES, TILE, _pairwise_iou, _suppresses, batched_nms,
+    class_aware_nms, greedy_alive_sorted_plain, nms, nms_alive, sweep_plan)
 from feature_intertwiner_tpu_torch.ops.proposals import proposal_layer
 from feature_intertwiner_tpu_torch.ops.roi_align import (
     assign_fpn_level, multilevel_crop_and_resize, multilevel_gather_plain, roi_align_fwd)
@@ -112,6 +114,15 @@ def _nms_case(kind, rng, n):
         valid = rng.rand(n) > 0.3
         valid[-n // 4:] = False
         b[-n // 4:] = 0.0
+    elif kind == "disjoint":
+        # each box inside a cell of its own: all kept, 64 per tile
+        side = int(np.ceil(np.sqrt(n)))
+        cell = rng.permutation(n)
+        y, x = (cell // side) * 10.0, (cell % side) * 10.0
+        b = np.stack([y, x, y + 8, x + 8], 1).astype(np.float32)
+    elif kind == "one":
+        # copies of one 50-px box moved by less than 1 px: the first suppresses all
+        b = (np.float32([20, 30, 70, 80]) + rng.rand(n, 4)).astype(np.float32)
     return b, scores, valid
 
 
@@ -155,6 +166,152 @@ def test_nms_alive_matches_pallas_kernel_and_sweep(kind, plus_one, strict):
                                   np.stack([np.asarray(_greedy_alive_sorted(
                                       jnp.asarray(bx[i]), jnp.asarray(va[i]), 0.6, plus_one, strict, 128))
                                       for i in range(bsz)]))
+
+
+# A numpy model of csrc/nms.cu, word for word: the mask pass's 64-bit words
+# in their upper-triangle runs, then the sweep with its staged window.
+WORD = (1 << 64) - 1
+
+
+def _tile_offset(c, tiles):
+    return TILE * (c * tiles - c * (c - 1) // 2)
+
+
+def _mask_runs(boxes, thr, plus_one, strict):
+    """The mask pass for one image: bit t of word (row i, tile k) is set when
+    row i suppresses column k * 64 + t > i; tile c's rows hold words
+    c..tiles-1, row after row, tile after tile. Python ints."""
+    n = boxes.shape[0]
+    tiles = n // TILE
+    supp = np.triu(_suppresses(_pairwise_iou(T(boxes), T(boxes), plus_one), thr, strict).numpy(), 1)
+    words = np.packbits(supp.reshape(n, tiles, TILE), axis=-1, bitorder="little")
+    words = words.view("<u8")[..., 0]                                   # [n, tiles]
+    runs = [words[c * TILE:(c + 1) * TILE, c:].reshape(-1) for c in range(tiles)]
+    return [int(w) for w in np.concatenate(runs)]
+
+
+def _rows_or(rows, words):
+    """A warp reduction: the OR of ``words[r]`` over the rows r of ``rows``."""
+    acc = 0
+    for r in range(TILE):
+        if rows >> r & 1:
+            acc |= words[r]
+    return acc
+
+
+def _sweep_model(runs, valid, words):
+    """The sweep for one image with ``words`` staged words per row: the
+    removed bitset starts as the invalid rows; per tile the rounds (the
+    lowest candidate and every candidate that no candidate suppresses are
+    kept, and drop what they suppress) over the staged diagonal words, then
+    per later word the OR over the list of kept rows, from the stage buffer
+    or, past the window, from the mask."""
+    n = valid.shape[0]
+    tiles = n // TILE
+    removed = [WORD & ~sum(1 << t for t in range(TILE) if valid[k * TILE + t])
+               for k in range(tiles)]
+    alive = np.zeros(n, bool)
+    for c in range(tiles):
+        off, later = _tile_offset(c, tiles), tiles - c
+        staged = min(words, later)
+        buf = [runs[off + r * later:off + r * later + staged] for r in range(TILE)]
+        diag = [row[0] for row in buf]
+        cand, keep = WORD & ~removed[c], 0
+        while cand:
+            k = (cand & ~_rows_or(cand, diag)) | (cand & -cand)
+            keep |= k
+            cand &= ~k
+            if cand:
+                cand &= ~_rows_or(k, diag)
+        alive[c * TILE:(c + 1) * TILE] = [(keep >> t) & 1 for t in range(TILE)]
+        kept = [r for r in range(TILE) if keep >> r & 1]
+        for j in range(1, later):
+            acc = 0
+            for r in kept:
+                acc |= buf[r][j] if j < staged else runs[off + r * later + j]
+            removed[c + j] |= acc
+    return alive
+
+
+@pytest.mark.parametrize("plus_one,strict", [(True, True), (False, False)])
+@pytest.mark.parametrize("kind", ["random", "ties", "padded", "disjoint", "one"])
+def test_nms_kernel_model_matches_plain_jax_and_pallas(kind, plus_one, strict):
+    """The kernel's algorithm (numpy model, the plan's window and two
+    narrower ones) against the plain version, the XLA sweep and the Pallas
+    kernel (interpret mode), bit for bit."""
+    rng = np.random.RandomState(7)
+    bsz, n = 2, 1024 if kind != "ties" else 512
+    cases = [_nms_case(kind, rng, n) for _ in range(bsz)]
+    bx = np.stack([c[0][np.argsort(-c[1], kind="stable")] for c in cases])
+    va = np.stack([c[2][np.argsort(-c[1], kind="stable")] for c in cases])
+    plain = greedy_alive_sorted_plain(T(bx), T(va), 0.6, plus_one, strict).numpy()
+    pallas = np.asarray(nms_alive_pallas_batched(
+        jnp.asarray(bx), jnp.asarray(va), 0.6, plus_one=plus_one, strict=strict,
+        block=64, interpret=True))
+    sweep = np.stack([np.asarray(_greedy_alive_sorted(
+        jnp.asarray(bx[i]), jnp.asarray(va[i]), 0.6, plus_one, strict, 64))
+        for i in range(bsz)])
+    np.testing.assert_array_equal(pallas, plain)
+    np.testing.assert_array_equal(sweep, plain)
+    runs = [_mask_runs(bx[i], 0.6, plus_one, strict) for i in range(bsz)]
+    for words in (sweep_plan(n)[0], 3, 1):
+        model = np.stack([_sweep_model(runs[i], va[i], words) for i in range(bsz)])
+        np.testing.assert_array_equal(model, plain)
+    if kind == "disjoint":
+        assert plain.all()
+    elif kind == "one":
+        assert plain.sum(1).tolist() == [1] * bsz
+
+
+@pytest.mark.parametrize("thr,strict", [(0.7, True), (0.0, False), (0.0, True), (-0.5, False)])
+def test_mask_pass_decides_a_zero_intersection_without_dividing(thr, strict):
+    """The mask kernel skips the division where the intersection is +-0: the
+    quotient is then +-0, or NaN where the union is 0 or NaN. Its rule
+    equals the plain test on every pair, degenerate, inverted and
+    zero-area boxes included."""
+    rng = np.random.RandomState(8)
+    b = _random_boxes(rng, 96, size=60.0, min_hw=0.0, max_hw=30.0)
+    b[:8, 2:] = b[:8, :2]                      # zero-area boxes
+    b[8:16] = b[8:16][:, [2, 3, 0, 1]]          # inverted boxes
+    b[16:20] = 0.0                              # the padding's zero box
+    for plus_one in (True, False):
+        a, c = T(b), T(b)
+        off = 1.0 if plus_one else 0.0
+        y1 = torch.maximum(a[:, None, 0], c[None, :, 0])
+        x1 = torch.maximum(a[:, None, 1], c[None, :, 1])
+        y2 = torch.minimum(a[:, None, 2], c[None, :, 2])
+        x2 = torch.minimum(a[:, None, 3], c[None, :, 3])
+        inter = (x2 - x1 + off).clamp_min(0.0) * (y2 - y1 + off).clamp_min(0.0)
+        area = (a[:, 2] - a[:, 0] + off) * (a[:, 3] - a[:, 1] + off)
+        uni = area[:, None] + area[None, :] - inter
+        zero_passes = (0.0 > thr) if strict else (0.0 >= thr)
+        rule = torch.where(inter == 0, zero_passes & (uni == uni) & (uni != 0),
+                           _suppresses(inter / uni, thr, strict))
+        want = _suppresses(_pairwise_iou(a, c, plus_one), thr, strict)
+        assert bool((inter == 0).any()) and bool((inter > 0).any())
+        assert torch.equal(rule, want)
+
+
+@pytest.mark.parametrize("n", [64, 1024, 6016, 14336, 14400, 16384, 65536, 393216])
+def test_sweep_plan_fits_shared_memory_and_covers_every_word(n):
+    words, nbytes = sweep_plan(n)
+    tiles = n // TILE
+    assert 1 <= words <= tiles
+    assert nbytes == tiles * 8 + LIST_BYTES + STAGES * words * TILE * 8 <= SHARED_BYTES == 227 * 1024
+    # each row of tile c's run holds words c..tiles-1: the first `words` are
+    # staged, the rest read from device memory, none twice, the diagonal staged
+    later = tiles - np.arange(tiles)
+    staged = np.minimum(words, later)
+    rest = later - words
+    assert (staged >= 1).all()
+    assert (staged + np.maximum(rest, 0) == later).all()
+    # whole runs are double-buffered up to 224 tiles (N = 14,336)
+    assert (words == tiles) == (n <= 14336)
+    if n == 6016:
+        assert (STAGES, words, nbytes) == (2, 94, 97_520)
+    # the C entry holds the kernel to the same limit and stages
+    source = (cuda_build.CSRC_DIR / "nms.cu").read_text()
+    assert f"kSharedLimit = {SHARED_BYTES};" in source and f"kStages = {STAGES};" in source
 
 
 def test_nms_alive_checks_its_inputs():

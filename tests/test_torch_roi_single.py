@@ -205,7 +205,7 @@ def test_mm_vector_width(offset, channels, width):
 
 
 # --- tools/profile_roi.py ------------------------------------------------------------
-@pytest.mark.parametrize("command", ["crop", "stage", "window", "bwd"])
+@pytest.mark.parametrize("command", ["crop", "stage", "window", "bwd", "nms"])
 def test_profile_roi_runs_small_on_the_cpu(command, capsys):
     rows = profile_roi.main([command, "--device", "cpu", "--batch", "2", "--boxes", "128",
                              "--size", "64", "--reps", "1"])
@@ -229,6 +229,18 @@ def test_profile_roi_runs_small_on_the_cpu(command, capsys):
             torch.testing.assert_close(a, c, rtol=0, atol=0)
             torch.testing.assert_close(b2, c, rtol=0, atol=1e-5)
         assert rows[3]["fn"](*rows[3]["args"]).shape == (2, 256, 16, 16)
+    elif command == "nms":
+        assert [r["route"] for r in rows] == [
+            "nms_alive (K2) proposals [2, 128] thr 0.7",
+            "greedy_alive_sorted_plain proposals [2, 128] thr 0.7",
+            "nms_alive (K2) detections [2, 128] thr 0.3",
+            "greedy_alive_sorted_plain detections [2, 128] thr 0.3"]
+        for k2, plain in (rows[:2], rows[2:]):
+            assert all(a is b for a, b in zip(k2["args"], plain["args"]))   # the same tensors
+            assert torch.equal(k2["fn"](*k2["args"]), plain["fn"](*plain["args"]))
+            assert k2["kept"] == plain["kept"]
+        # clustered boxes: a share of the proposals survives, as on the inference path
+        assert 0.2 < rows[0]["kept"] / 256 < 0.8
     else:
         assert "(K6) 8x8" in routes and "(K6) 32x32" in routes and "(K6) 64x64" not in routes
         assert all(r["GB/s"] > 0 for r in rows)
