@@ -17,13 +17,17 @@ Phases, each of which must pass:
    pooling) and the NMS kernel at least twice (proposals and detections);
 4. kernels: each kernel's wrapper runs again on the tensors the main path
    gave it and is held against its plain PyTorch version on the same
-   tensors: RoIAlign within 1e-5, NMS bit for bit and bit-equal over two
-   launches, also on tie-heavy and padded cases, on boxes all disjoint (all
-   kept) and on copies of one box (one kept) at the proposal shape, on the
-   eval batch's [8, 6016] and on [1, 16384], whose tiles the NMS sweep
-   cannot stage whole in shared memory; each is timed beside its plain
-   version, its bound and a PyTorch yardstick, and the NMS kernel's passes
-   on the main path's calls are traced (torch.profiler);
+   tensors: RoIAlign within 1e-5 and bit-equal over two launches, also one
+   float at a time (3 and 6 channels, a 256-channel P2 4 bytes off a
+   16-byte boundary), at crops 1² and 5x9, on boxes out of range and
+   inverted with extrapolation -1.5, on one box at 14² (its rows in
+   several blocks) and at 2,048 channels; NMS bit for bit and bit-equal
+   over two launches, also on tie-heavy and padded cases, on boxes all
+   disjoint (all kept) and on copies of one box (one kept) at the
+   proposal shape, on the eval batch's [8, 6016] and on [1, 16384], whose
+   tiles the NMS sweep cannot stage whole in shared memory; each is timed
+   beside its plain version, its bound and a PyTorch yardstick, and both
+   kernels' launches on the main path's calls are traced (torch.profiler);
 5. breakdown: the forward's device time by kernel family (torch.profiler)
    and the device's busy share, reported and not checked;
 6. train path: the flagship recipe trained through ``Trainer`` and
@@ -47,7 +51,7 @@ Phases, each of which must pass:
    bound and grid_sample's backward; per train step it must beat
    grid_sample's backward. Then the per-pass device time of the two
    calls; the RoIAlign forward on that step's five poolings, within 1e-5 of
-   its plain version and timed;
+   its plain version, timed and traced;
    bwd_sweep: the ``bwd`` sweep of ``tools/profile_roi.py`` (B=8, 200
    random boxes per image over P2-P5 of 1024², 7² and 14²), on the timed
    tensors K3 held as above and K1 + K3 through autograd against the plain
@@ -503,6 +507,62 @@ def main() -> int:
             if k["name"] == name:
                 k["max_abs_err"] = max(k["max_abs_err"], err)
 
+    def k1_cases():
+        """K1 off the main path's shapes, each call against its plain version
+        within 1e-5 and bit-equal over two launches: one float at a time (3
+        and 6 channels, a 256-channel P2 4 bytes off a 16-byte boundary),
+        crops 1² and 5x9, boxes out of range and inverted with
+        extrapolation -1.5, one box at 14² (its rows split across blocks),
+        2,048 channels. Returns the largest error."""
+        g = torch.Generator(device="cuda").manual_seed(21)
+
+        def pyramid(c, sizes=(64, 32, 16, 8)):
+            return [torch.randn((2, s, s, c), device="cuda", generator=g) for s in sizes]
+
+        n = 300
+        yx = torch.rand((n, 2), device="cuda", generator=g) * 0.8
+        boxes = torch.cat([yx, yx + torch.rand((n, 2), device="cuda", generator=g) * 0.3 + 0.01], 1)
+        wild = torch.rand((n, 4), device="cuda", generator=g) * 1.8 - 0.4
+        bidx = torch.randint(0, 2, (n,), dtype=torch.int32, device="cuda", generator=g)
+        lvl = torch.randint(0, 4, (n,), dtype=torch.int32, device="cuda", generator=g)
+        p256 = pyramid(256)
+        off = torch.empty(2 * 64 * 64 * 256 + 1, device="cuda")[1:].view(2, 64, 64, 256)
+        off.copy_(p256[0])
+        one = (boxes[:1], bidx[:1], lvl[:1])
+        cases = [("3 channels", pyramid(3), boxes, bidx, lvl, (7, 7), 0.0, 1),
+                 ("6 channels", pyramid(6), boxes, bidx, lvl, (7, 7), 0.0, 1),
+                 ("256 channels, P2 4 bytes off", [off] + p256[1:], boxes, bidx, lvl, (7, 7),
+                  0.0, 1),
+                 ("crop 1x1", p256, boxes, bidx, lvl, (1, 1), 0.0, 4),
+                 ("crop 5x9", p256, boxes, bidx, lvl, (5, 9), 0.0, 4),
+                 ("one box", p256, *one, (14, 14), 0.0, 4),
+                 ("2048 channels", pyramid(2048, (32, 16, 8, 4)), boxes[:64], bidx[:64], lvl[:64],
+                  (14, 14), 0.0, 4)]
+        cases += [("out-of-range and inverted boxes, extrapolation -1.5", p256, wild, bidx, lvl,
+                   crop, -1.5, 4) for crop in ((7, 7), (1, 1), (5, 9))]
+        worst = 0.0
+        for label, feats, bx, bi, lv, crop, extrap, width in cases:
+            got = roi_ops.roi_align_fwd(feats, bx, bi, lv, crop, extrap)
+            again = roi_ops.roi_align_fwd(feats, bx, bi, lv, crop, extrap)
+            want = roi_ops.multilevel_gather_plain(feats, bx, bi, lv, crop, extrap)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            worst = max(worst, e)
+            vec = roi_ops.fwd_vector_width(feats, got)
+            rows, blocks, _ = roi_ops.fwd_plan(bx.shape[0], crop, feats[0].shape[3], vec)
+            extrapolated = int((got == extrap).all(-1).sum()) if extrap else 0
+            log(f"  roi_align_fwd {label}, n={bx.shape[0]} crop={crop} C={feats[0].shape[3]}: "
+                f"err {e:.3g}, {vec} float(s) at a time, {rows} rows per block over {blocks} "
+                f"blocks, two launches bit-equal {torch.equal(got, again)}"
+                + (f", {extrapolated} samples extrapolated" if extrap else ""))
+            require(e <= 1e-5, f"K1 differs from its plain version by {e} ({label})")
+            require(torch.equal(got, again), f"two K1 launches differ ({label})")
+            require(vec == width, f"K1 reads {vec} floats at a time on {label}, want {width}")
+            require(not extrap or extrapolated > 0, f"nothing extrapolated ({label})")
+            if label == "one box":
+                require(rows < crop[0], "the one box's rows are not split across blocks")
+        return worst
+
     def roi_kernel():
         calls = state["roi_calls"]
         err, ms, plain_ms, lib_ms, bound_bytes, ops = 0.0, 0.0, 0.0, 0.0, 0, 0
@@ -510,10 +570,12 @@ def main() -> int:
             feats, boxes, bidx, lidx, crop = args[:5]
             extrap = args[5] if len(args) > 5 else kwargs.get("extrapolation_value", 0.0)
             got = roi_ops.roi_align_fwd(feats, boxes, bidx, lidx, crop, extrap)
+            again = roi_ops.roi_align_fwd(feats, boxes, bidx, lidx, crop, extrap)
             want = roi_ops.multilevel_gather_plain(feats, boxes, bidx, lidx, crop, extrap)
             torch.cuda.synchronize()
             e = float((got - want).abs().max())
             err = max(err, e)
+            require(torch.equal(got, again), f"two RoIAlign launches differ (n={boxes.shape[0]})")
             k_ms = cuda_ms(torch, lambda: roi_ops.roi_align_fwd(feats, boxes, bidx, lidx, crop, extrap), 20)
             p_ms = cuda_ms(torch, lambda: roi_ops.multilevel_gather_plain(feats, boxes, bidx, lidx, crop, extrap), 5)
             # yardstick: one grid_sample over P2 for every box of the call
@@ -526,9 +588,14 @@ def main() -> int:
             bound_bytes += nbytes
             ops += n_ops
             ms, plain_ms, lib_ms = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
+            b_ms = max(nbytes / H100_BYTES_PER_S, n_ops / H100_FP32_OPS_PER_S) * 1e3
             log(f"  roi_align_fwd n={n} crop={crop}: err {e:.3g}, {k_ms:.4f} ms, "
-                f"plain {p_ms:.4f} ms, grid_sample {l_ms:.4f} ms, {rows} tap rows, "
-                f"{nbytes} bytes")
+                f"plain {p_ms:.4f} ms, grid_sample {l_ms:.4f} ms, bound {b_ms:.6f} ms "
+                f"({rows} tap rows, {nbytes} bytes)")
+            # the kernel's launch on this call (torch.profiler)
+            profile_roi.print_trace(profile_roi.kernel_trace(
+                lambda: roi_ops.roi_align_fwd(feats, boxes, bidx, lidx, crop, extrap), 10, "cuda"))
+        err = max(err, k1_cases())
         if err > 1e-5:
             raise AssertionError(f"RoIAlign kernel differs from its plain version by {err}")
         t_bytes = bound_bytes / H100_BYTES_PER_S * 1e3
@@ -970,6 +1037,8 @@ def main() -> int:
                 log(f"  roi_align_fwd on the train path: n={args[1].shape[0]} crop={args[4]} "
                     f"levels={len(args[0])}: {fwd_ms[-1]:.4f} ms, bound {b_ms:.6f} ms "
                     f"({k1_bytes} bytes, {k1_rows} tap rows)")
+                profile_roi.print_trace(profile_roi.kernel_trace(
+                    lambda: roi_ops.roi_align_fwd(*args, **kwargs), 10, "cuda"))
         require(len(fwd_ms) == 5, f"{len(fwd_ms)} recorded forward calls in a train step, want 5")
         log(f"  roi_align_fwd per train step: {sum(fwd_ms):.4f} ms over {len(fwd_ms)} launches, "
             f"bound {fwd_bound:.6f} ms; err {fwd_err:.3g} against its plain version")
@@ -1467,12 +1536,14 @@ def main() -> int:
         require(launches["nms_alive"] >= 2 * batches, f"K2 launches {launches}")
         require(len(results) > 0 and all(math.isfinite(r["score"]) for r in results),
                 "no detections, or a non-finite score")
-        k1_err, mism = 0.0, 0
+        k1_err, mism, k1_bytes, k1_ops = 0.0, 0, 0, 0
         with torch.inference_mode():
             for args, kwargs in roi_rec.calls:
                 got = roi_ops.roi_align_fwd(*args, **kwargs)
                 want = roi_ops.multilevel_gather_plain(*args, **kwargs)
                 k1_err = max(k1_err, float((got - want).abs().max()))
+                nbytes, _, n_ops = k1_work(torch, roi_ops, *args[:5])
+                k1_bytes, k1_ops = k1_bytes + nbytes, k1_ops + n_ops
             needed = []
             for args, kwargs in nms_rec.calls:
                 got = nms_ops.nms_alive(*args, **kwargs)
@@ -1481,9 +1552,12 @@ def main() -> int:
                 needed.append((*args[:2], want, args[2], call_opts(args, kwargs)))
             _, _, _, t_ops, t_bytes = nms_bound(nms_ops, needed)
         torch.cuda.synchronize()
+        k1_tb, k1_to = k1_bytes / H100_BYTES_PER_S * 1e3, k1_ops / H100_FP32_OPS_PER_S * 1e3
         log(f"EVAL kernels against their plain versions on the eval path's tensors: "
             f"roi_align_fwd err {k1_err:.3g} over {len(roi_rec.calls)} calls "
-            f"(n={[int(a[1].shape[0]) for a, _ in roi_rec.calls]}), nms_alive {mism} "
+            f"(n={[int(a[1].shape[0]) for a, _ in roi_rec.calls]}; bound per batch "
+            f"{max(k1_tb, k1_to) / batches:.6f} ms by {'bytes' if k1_tb >= k1_to else 'operations'}"
+            f"), nms_alive {mism} "
             f"mismatches over {len(nms_rec.calls)} calls "
             f"(shapes {[tuple(a[0].shape) for a, _ in nms_rec.calls]}; bound per batch "
             f"{max(t_ops, t_bytes) / batches:.6f} ms by "

@@ -75,6 +75,7 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
+@functools.lru_cache(maxsize=None)
 def reciprocal(crop: int) -> float:
     """float32 ``1 / (crop - 1)``: XLA divides by a constant as a multiply by
     its reciprocal, and the port does the same on every device."""
@@ -207,7 +208,8 @@ def roi_align_fwd(
 
     Kernel wrapper: on CUDA tensors it launches ``csrc/roi_align_fwd.cu``
     (which replaces ``feature_intertwiner_tpu/ops/roi_align_window.py::
-    _window_roi_kernel``); on CPU tensors it runs
+    _window_roi_kernel``) on the blocks of :func:`fwd_plan`, reading
+    :func:`fwd_vector_width` floats at a time; on CPU tensors it runs
     :func:`multilevel_gather_plain`. Each launch adds one to
     ``cuda_build.launches["roi_align_fwd"]``."""
     features = list(features)
@@ -230,28 +232,83 @@ def roi_align_fwd(
     bidx = box_indices.to(torch.int32).contiguous()
     lidx = level_idx.to(torch.int32).contiguous()
     out = torch.empty((n, ch, cw, c), dtype=torch.float32, device=dev)
-    lib = cuda_build.load("roi_align_fwd")
-    fn = lib.roi_align_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                   ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    vec = fwd_vector_width(features, out)
+    rows, _, _ = fwd_plan(n, (ch, cw), c, vec)
     num = len(features)
     ptrs = (ctypes.c_void_p * num)(*[f.data_ptr() for f in features])
     hs = (ctypes.c_int * num)(*[f.shape[1] for f in features])
     ws = (ctypes.c_int * num)(*[f.shape[2] for f in features])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ptrs, hs, ws, num, b, c, boxes.data_ptr(), bidx.data_ptr(),
-                 lidx.data_ptr(), n, ch, cw, reciprocal(ch), reciprocal(cw),
-                 float(extrapolation_value), out.data_ptr(), stream)
+        err = _fwd_library().roi_align_fwd(
+            ptrs, hs, ws, num, b, c, vec, boxes.data_ptr(), bidx.data_ptr(), lidx.data_ptr(),
+            n, ch, cw, rows, reciprocal(ch), reciprocal(cw), float(extrapolation_value),
+            out.data_ptr(), stream)
     cuda_build.check(err, "roi_align_fwd")
     if n > 0:  # the C entry launches nothing for no boxes
         cuda_build.launches["roi_align_fwd"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_library() -> ctypes.CDLL:
+    """``csrc/roi_align_fwd.cu``'s library with its entry point typed."""
+    lib = cuda_build.load("roi_align_fwd")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ints = ctypes.POINTER(ctypes.c_int)
+    lib.roi_align_fwd.restype = i32
+    lib.roi_align_fwd.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ints, ints] + [i32] * 4
+                                  + [ptr] * 3 + [i32] * 4 + [f32] * 3 + [ptr] * 2)
+    return lib
+
+
+# The forward kernel's plan: output vectors a block aims at; and
+# csrc/roi_align_fwd.cu's constants: threads per block (kThreads), the bytes
+# of one row's staged y taps and of one column's x taps, and the most shared
+# memory for them (kSharedLimit).
+FWD_VECTORS = 4096
+FWD_THREADS = 256
+FWD_ROW_BYTES = 32
+FWD_COL_BYTES = 16
+FWD_SHARED_BYTES = 48 * 1024
+
+
+def fwd_vector_width(features: Sequence[torch.Tensor], out: torch.Tensor) -> int:
+    """Floats the forward kernel reads and writes at a time: 4 when the
+    channel count is a multiple of 4 and every level and the crops start on
+    16-byte boundaries (every map row and crop row then does), else 1."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (*features, out))
+    return 4 if out.shape[-1] % 4 == 0 and aligned else 1
+
+
+def fwd_shared_bytes(rows: int, crop_size: Tuple[int, int]) -> int:
+    """Shared memory of a forward block of ``rows`` consecutive sample rows:
+    their y taps, and the x taps of the most boxes such rows can touch."""
+    ch, cw = crop_size
+    boxes = (rows + ch - 2) // ch + 1
+    return rows * FWD_ROW_BYTES + boxes * cw * FWD_COL_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_rows(crop_size: Tuple[int, int], vectors_per_row: int) -> int:
+    rows = max(1, FWD_VECTORS // vectors_per_row)
+    while rows > 1 and fwd_shared_bytes(rows, crop_size) > FWD_SHARED_BYTES:
+        rows -= 1
+    if fwd_shared_bytes(rows, crop_size) > FWD_SHARED_BYTES:
+        raise ValueError(f"roi_align_fwd: a {crop_size[1]}-wide crop's taps do not fit "
+                         f"{FWD_SHARED_BYTES} bytes of shared memory")
+    return rows
+
+
+def fwd_plan(n: int, crop_size: Tuple[int, int], channels: int, vec: int) -> Tuple[int, int, int]:
+    """How the forward kernel splits ``n`` boxes' crops: ``(rows per block,
+    blocks, shared bytes per block)``. The crops are ``n * crop_h`` sample
+    rows of ``crop_w * channels / vec`` output vectors; a block takes about
+    ``FWD_VECTORS`` vectors of consecutive rows (at least one row), as many
+    as its staged taps leave room for."""
+    ch, cw = (int(v) for v in crop_size)
+    rows = _fwd_rows((ch, cw), cw * (channels // vec))
+    return rows, -(-n * ch // rows), fwd_shared_bytes(rows, (ch, cw))
 
 
 def multilevel_gather_bwd_plain(

@@ -5,6 +5,7 @@
     python -m feature_intertwiner_tpu_torch.tools.profile_roi window [flags]
     python -m feature_intertwiner_tpu_torch.tools.profile_roi bwd    [flags]
     python -m feature_intertwiner_tpu_torch.tools.profile_roi nms    [flags]
+    python -m feature_intertwiner_tpu_torch.tools.profile_roi fwd    [flags]
 
 The port of four measuring scripts of the JAX package:
 
@@ -41,6 +42,18 @@ IoU threshold 0.7, and the detections' 1000 per image (padded to 1024)
 of its own as ``class_aware_nms`` moves it, at 0.3, on a ``--size``² image
 (default 1024). The boxes come from ``--seed`` in clusters, so that about
 40% of the proposals survive, as on the inference path.
+
+And ``fwd``, which has no JAX script either: the multilevel RoIAlign
+forward K1 (``roi_align_fwd``), its plain version and ``F.grid_sample``
+over one map as a yardstick, at the shapes of the model's own calls over
+P2-P5 of a ``--size``² image (default 1024), 256 channels. At batch
+``--batch`` (default 2; 8 is the evaluation's) the inference path's two
+calls: 7² on ``--boxes`` proposals per image (default 1000) and 14² on 100
+detections per image (or ``--boxes``, where fewer). At ``--batch 4`` the
+train step's five: 7² and 14² on ``--boxes`` RoIs per image (default 200)
+over P2-P5, and a 14² crop of every RoI on each of P2, P3 and P4 alone (the
+big-set crops). The boxes are clustered as ``nms``'s proposals, from
+``--seed``, each on the level ``assign_fpn_level`` gives it.
 
 The JAX scripts ran bfloat16 maps; K1, K3, K4 and K5 take float32 until
 the port has bfloat16 maps, and each line names the dtype it used. Times are CUDA
@@ -326,6 +339,49 @@ def window(batch: int = 8, size: int = 256, boxes: int = 4096, reps: int = 5, de
     return rows
 
 
+def fwd_boxes(batch: int, count: int, size: int, device, seed: int = 0):
+    """``count`` normalised boxes per image clustered as :func:`nms_inputs`
+    draws proposals, in image order: boxes [batch * count, 4] float32, their
+    image indices [batch * count] int32 and FPN levels (0-based, int32)."""
+    pixels, _ = nms_inputs(batch, count, size, "cpu", seed)
+    flat = (pixels[:, :count] / size).reshape(-1, 4)
+    idx = torch.arange(batch, dtype=torch.int32).repeat_interleave(count)
+    level = roi_ops.assign_fpn_level(flat, (size, size)) - 2
+    return flat.to(device), idx.to(device), level.to(device)
+
+
+def fwd(batch: int = 2, boxes: Optional[int] = None, size: int = 1024, reps: int = 5,
+        device=None, seed: int = 0) -> List[Dict[str, object]]:
+    """The ``fwd`` table: per call of the model's (the inference path's two,
+    or at batch 4 the train step's five), K1, its plain version and
+    ``grid_sample`` over the call's first map for the same boxes."""
+    dev = resolve_device(device)
+    maps, _ = stage_inputs(batch, 0, size, dev, seed)
+    train = batch == 4
+    count = boxes or (200 if train else 1000)
+    flat, idx, level = fwd_boxes(batch, count, size, dev, seed)
+    n = flat.shape[0]
+    if train:
+        zero = torch.zeros_like(level)
+        calls = [(f"{c}x{c} on {n} RoIs over P2-P5", maps, flat, idx, level, c) for c in (7, 14)]
+        calls += [(f"14x14 on {n} RoIs, P{p} alone", [maps[p - 2]], flat, idx, zero, 14)
+                  for p in (2, 3, 4)]
+    else:
+        dets = fwd_boxes(batch, min(100, count), size, dev, seed + 1)
+        calls = [(f"7x7 on {n} proposals over P2-P5", maps, flat, idx, level, 7),
+                 (f"14x14 on {dets[0].shape[0]} detections over P2-P5", maps, *dets, 14)]
+    grid_sample = functools.partial(F.grid_sample, mode="bilinear", padding_mode="zeros",
+                                    align_corners=True)
+    routes = []
+    for label, m, bx, bi, lvl, c in calls:
+        args = (m, bx, bi, lvl, (c, c))
+        routes += [(f"roi_align_fwd (K1) {label}", roi_ops.roi_align_fwd, args),
+                   (f"multilevel_gather_plain {label}", roi_ops.multilevel_gather_plain, args),
+                   (f"F.grid_sample {label.split(' over ')[0]}, first map (yardstick)",
+                    grid_sample, (m[0].permute(0, 3, 1, 2), box_grid(bx, (c, c), batch)))]
+    return timed_rows(routes, reps, dev, "float32")
+
+
 def nms_inputs(batch: int, boxes: int, size: int, device, seed: int = 0, classes: int = 0):
     """Score-sorted boxes [B, N, 4] float32 (N = ``boxes`` padded to a
     multiple of 64) and valid [B, N] bool for ``nms_alive``: the first
@@ -477,23 +533,24 @@ def print_table(title: str, rows: List[Dict[str, object]], device) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("command", choices=["crop", "stage", "window", "bwd", "nms"])
+    p.add_argument("command", choices=["crop", "stage", "window", "bwd", "nms", "fwd"])
     p.add_argument("--batch", type=int, default=None)
     p.add_argument("--boxes", type=int, default=None,
                    help="boxes per image (crop, stage, bwd), windows (window) or "
-                   "proposals per image (nms)")
+                   "proposals per image (nms, fwd)")
     p.add_argument("--size", type=int, default=None,
-                   help="map (crop, window) or image (stage, bwd, nms) side")
+                   help="map (crop, window) or image (stage, bwd, nms, fwd) side")
     p.add_argument("--reps", type=int, default=5)
-    p.add_argument("--seed", type=int, default=0, help="the boxes' seed (nms)")
+    p.add_argument("--seed", type=int, default=0, help="the boxes' seed (nms, fwd)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     p.add_argument("--trace", action="store_true",
                    help="print each route's device kernels from torch.profiler")
     args = p.parse_args(argv)
-    fn = {"crop": crop, "stage": stage, "window": window, "bwd": bwd, "nms": nms}[args.command]
+    fn = {"crop": crop, "stage": stage, "window": window, "bwd": bwd, "nms": nms,
+          "fwd": fwd}[args.command]
     kwargs = {k: v for k, v in (("batch", args.batch), ("boxes", args.boxes),
                                 ("size", args.size)) if v is not None}
-    if args.command == "nms":
+    if args.command in ("nms", "fwd"):
         kwargs["seed"] = args.seed
     device = resolve_device(args.device)
     rows = fn(reps=args.reps, device=device, **kwargs)

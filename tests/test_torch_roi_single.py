@@ -205,7 +205,7 @@ def test_mm_vector_width(offset, channels, width):
 
 
 # --- tools/profile_roi.py ------------------------------------------------------------
-@pytest.mark.parametrize("command", ["crop", "stage", "window", "bwd", "nms"])
+@pytest.mark.parametrize("command", ["crop", "stage", "window", "bwd", "nms", "fwd"])
 def test_profile_roi_runs_small_on_the_cpu(command, capsys):
     rows = profile_roi.main([command, "--device", "cpu", "--batch", "2", "--boxes", "128",
                              "--size", "64", "--reps", "1"])
@@ -241,6 +241,18 @@ def test_profile_roi_runs_small_on_the_cpu(command, capsys):
             assert k2["kept"] == plain["kept"]
         # clustered boxes: a share of the proposals survives, as on the inference path
         assert 0.2 < rows[0]["kept"] / 256 < 0.8
+    elif command == "fwd":
+        assert [r["route"] for r in rows][::3] == [
+            "roi_align_fwd (K1) 7x7 on 256 proposals over P2-P5",
+            "roi_align_fwd (K1) 14x14 on 200 detections over P2-P5"]
+        for k1, plain, yardstick in (rows[:3], rows[3:]):
+            assert k1["args"] is plain["args"]                     # the same tensors
+            torch.testing.assert_close(k1["fn"](*k1["args"]), plain["fn"](*plain["args"]),
+                                       rtol=0, atol=0)
+            n, crop = k1["args"][1].shape[0], k1["args"][4]
+            assert yardstick["fn"](*yardstick["args"]).shape == (2, 256, n // 2 * crop[0], crop[1])
+        for r in (rows[0], rows[3]):                               # each box on its FPN level
+            torch.testing.assert_close(r["args"][3], ra.assign_fpn_level(r["args"][1], (64, 64)) - 2)
     else:
         assert "(K6) 8x8" in routes and "(K6) 32x32" in routes and "(K6) 64x64" not in routes
         assert all(r["GB/s"] > 0 for r in rows)
