@@ -64,19 +64,23 @@ Phases, each of which must pass:
 9. roi_single: the ``crop`` sweep (B=8, 1024 boxes per image, 256² x 256,
    7²) and the ``stage`` sweep at B=8 of ``tools/profile_roi.py``, their
    launches counted from 0; then, on the very tensors each sweep timed, K4
-   and K5 at the ``crop`` shapes, K5 on the ``stage`` P4 map (also timed
-   beside its bound, plain version and grid_sample) and K1 at its 7² and
-   14² poolings against their plain versions within 1e-5, K4 with
+   and K5 at the ``crop`` shapes (bit-equal, also over two launches), K5
+   on the ``stage`` P4 map (also timed beside its bound, plain version and
+   grid_sample) and K1 at its 7² and 14² poolings against their plain
+   versions within 1e-5, K4 with
    extrapolation -1.5 on out-of-range and inverted boxes, and the gradient
    of ``crop_and_resize_fused`` on the card against the CPU's within 1e-5
    of its largest value, on the sweep's maps and on a 3-channel image of
-   odd width (map rows that are not 16-byte aligned); K5 one float at a
-   time (that image, a 6-channel map, a 256-channel map 4 bytes off a
-   16-byte boundary) at crops 7², 1² and 5x9 within 1e-5; K3 on a
-   2,048-channel map (two channel chunks): the fused gradient card against
-   CPU within 1e-5 of its largest value, and bit-equal to one call per half
-   of the channels; K5's launches at both sweeps' shapes under
-   torch.profiler (registers, shared memory, estimated occupancy);
+   odd width (map rows that are not 16-byte aligned); K4 (extrapolation 0
+   and -1.5) and K5 bit-equal to their plain versions and over two
+   launches at crops 7², 1² and 5x9: one float at a time (that image, a
+   6-channel map, a 256-channel map 4 bytes off a 16-byte boundary), on a
+   ragged last block, on no boxes and on a box whose rows span two blocks;
+   K3 on a 2,048-channel map (two channel chunks): the fused gradient card
+   against CPU within 1e-5 of its largest value, and bit-equal to one call
+   per half of the channels; K4's and K5's launches at the crop shapes, and
+   K5's at the stage shapes, under torch.profiler (registers, shared
+   memory, estimated occupancy);
 10. window_probe: the ``window`` sweep (K6 on a [8, 256, 256, 256] bf16 map
    at 4096 windows of 8x8 to 64x64), each size against its plain version
    on the timed map and origins within 1e-5 of the windows' sums of
@@ -1221,8 +1225,9 @@ def main() -> int:
         ``stage`` 7² and 14² poolings), K4 with a non-zero extrapolation on
         out-of-range and inverted boxes, the gradient of
         ``crop_and_resize_fused`` on the card against the CPU, on the sweep's
-        maps and on a 3-channel image of odd width; K5 one float at a time;
-        K3 in channel chunks; K5's launches under the profiler."""
+        maps and on a 3-channel image of odd width; K4 and K5 one float at a
+        time, on a ragged last block, no boxes and a box over two blocks;
+        K3 in channel chunks; K4's and K5's launches under the profiler."""
         import torch.nn.functional as F
 
         cuda_build.launches.clear()
@@ -1244,11 +1249,12 @@ def main() -> int:
 
         def held(row):
             """The row's kernel result against its plain version, both on the
-            tensors the sweep timed."""
+            tensors the sweep timed; two launches must be bit-equal."""
             with torch.no_grad():
-                got = row["fn"](*row["args"])
+                got, again = row["fn"](*row["args"]), row["fn"](*row["args"])
                 want = plains[row["fn"].__name__](*row["args"])
             torch.cuda.synchronize()
+            require(torch.equal(got, again), f"two launches of {row['route']} differ")
             return float((got - want).abs().max())
 
         # K5 and K1 at the stage sweep's shapes
@@ -1316,7 +1322,7 @@ def main() -> int:
             log(f"  {name}: err {err:.3g}, {r['ms']:.4f} ms, plain {p_ms:.4f} ms, "
                 f"grid_sample {lib_ms:.4f} ms; bound {nbytes} bytes "
                 f"({rows} tap rows) -> {t_bytes:.6f} ms, {ops} fp32 ops -> {t_ops:.6f} ms")
-            require(err <= 1e-5, f"{name} differs from its plain version by {err}")
+            require(err == 0.0, f"{name} differs from its plain version by {err}")
             if name == "crop_and_resize_grouped_mm":
                 err = max(err, stage_err)
             kernels.append({
@@ -1366,29 +1372,56 @@ def main() -> int:
             require(g_err <= 1e-5, f"the fused gradient differs by {g_err} of its largest "
                     f"value ({label})")
 
-        # K5 one float at a time: map rows that do not start on 16-byte
-        # boundaries (the RGB image, a 6-channel map) and a 256-channel map
-        # that starts 4 bytes off one, at the wild boxes' crops
+        # K4 and K5 off the sweep's shapes, each call bit-equal to its plain
+        # version and over two launches, at crops 7², 1² and 5x9, K4 at
+        # extrapolation 0 and -1.5: one float at a time (map rows that do not
+        # start on 16-byte boundaries: the RGB image, a 6-channel map; a
+        # 256-channel map that starts 4 bytes off one), a ragged last block,
+        # no boxes, and a box whose sample rows span two blocks
         six = torch.randn((2, 24, 37, 6), device="cuda", generator=g)
         off = torch.empty(2 * 20 * 24 * 256 + 1, device="cuda")[1:].view(2, 20, 24, 256)
         off.normal_(generator=g)
-        k5_err = 0.0
-        for label, img, bx in (("3 channels, 51 wide", rgb, rgb_boxes),
-                               ("6 channels", six, wild[:2, :64].contiguous()),
-                               ("256 channels, 4 bytes off", off, wild[:2, :64].contiguous())):
-            width = roi_ops.mm_vector_width(img)
+        calls = (("crop_and_resize_grouped", (0.0,)), ("crop_and_resize_grouped", (-1.5,)),
+                 ("crop_and_resize_grouped_mm", ()))
+        case_err = dict.fromkeys(plains, 0.0)
+        for label, img, bx, width in (
+                ("3 channels, 51 wide", rgb, rgb_boxes, 1),
+                ("6 channels", six, wild[:2, :64].contiguous(), 1),
+                ("256 channels, 4 bytes off", off, wild[:2, :64].contiguous(), 1),
+                ("ragged last block", image[:1], wild[:1, :37].contiguous(), 4),
+                ("no boxes", image[:2], wild[:2, :0].contiguous(), 4),
+                ("a box over two blocks", image[:1], boxes[:1, :2].contiguous(), 4)):
+            vec = roi_ops.mm_vector_width(img)
+            require(vec == width, f"K4/K5 read {vec} floats at a time on {label}, want {width}")
             for crop_w in ((7, 7), (1, 1), (5, 9)):
-                got = roi_ops.crop_and_resize_grouped_mm(img, bx, crop_w)
-                want = roi_ops.crop_and_resize_grouped_mm_plain(img, bx, crop_w)
-                torch.cuda.synchronize()
-                e = float((got - want).abs().max())
-                k5_err = max(k5_err, e)
-                log(f"  crop_and_resize_grouped_mm {label}, {width} float(s) at a time, "
-                    f"crop {crop_w}: err {e:.3g} against its plain version")
-            require(width == 1, f"K5 reads {width} floats at a time on {label}")
-        require(k5_err <= 1e-5, f"K5 differs from its plain version by {k5_err} one float "
-                f"at a time")
-        fold_err("crop_and_resize_grouped_mm", k5_err)
+                rows, blocks, _ = roi_ops.fwd_plan(bx.shape[0] * bx.shape[1], crop_w, img.shape[3],
+                                                   vec)
+                if label == "ragged last block":
+                    require(bx.shape[1] * crop_w[0] % rows, f"no ragged block at {crop_w}")
+                if label == "a box over two blocks" and crop_w[0] > 1:
+                    require(crop_w[0] // rows != (2 * crop_w[0] - 1) // rows,
+                            f"the second box's rows lie in one block at {crop_w}")
+                line = []
+                for name, extra in calls:
+                    before = cuda_build.launches[name]
+                    got = getattr(roi_ops, name)(img, bx, crop_w, *extra)
+                    again = getattr(roi_ops, name)(img, bx, crop_w, *extra)
+                    want = plains[name](img, bx, crop_w, *extra)
+                    torch.cuda.synchronize()
+                    e = float((got - want).abs().max()) if got.numel() else 0.0
+                    case_err[name] = max(case_err[name], e)
+                    same = torch.equal(got, again)
+                    line.append(f"{'K5' if extra == () else f'K4 at {extra[0]}'} err {e:.3g}, "
+                                f"two launches bit-equal {same}")
+                    require(got.shape == want.shape and torch.equal(got, want) and same,
+                            f"{name} differs from its plain version or itself ({label}, "
+                            f"{crop_w}, {extra})")
+                    require(cuda_build.launches[name] - before == (2 if bx.shape[1] else 0),
+                            f"{name} launched {cuda_build.launches[name] - before} times")
+                log(f"  K4/K5 {label}, {vec} float(s) at a time, crop {crop_w}, {rows} rows per "
+                    f"block over {blocks} blocks: " + "; ".join(line))
+        for name, e in case_err.items():
+            fold_err(name, e)
 
         # K3 on a map wider than one launch's shared-memory tile: the fused
         # gradient of 2,048 channels at 7², card against the CPU, then the
@@ -1420,8 +1453,10 @@ def main() -> int:
         require(same and chunk_launches == 2, "the chunked backward differs from its halves")
         fold_err("roi_align_bwd", g_err * top)
 
-        # where K5's time goes: its launches at the crop and stage shapes
-        for r in (route["crop_and_resize_grouped_mm"], stage_k5):
+        # where K4's and K5's time goes: their launches at the crop shapes, K5's
+        # at the stage shapes
+        for r in (route["crop_and_resize_grouped"], route["crop_and_resize_grouped_mm"],
+                  stage_k5):
             with torch.no_grad():
                 trace = profile_roi.kernel_trace(lambda: r["fn"](*r["args"]), 5, "cuda")
             log(f"  {r['route']} kernels per call:")

@@ -1,80 +1,71 @@
-// Single-level TF crop_and_resize with the boxes grouped per image, two
-// entry points.
-//
-// crop_and_resize_grouped replaces the Pallas kernel
-//   feature_intertwiner_tpu/ops/roi_align.py::_roi_align_kernel
-// (behind crop_and_resize_pallas), and crop_and_resize_grouped_mm replaces
-//   feature_intertwiner_tpu/ops/roi_align.py::_roi_align_matmul_kernel
-// (behind crop_and_resize_pallas_mm). Both TPU kernels hold a channel tile
-// of the whole map in VMEM and interpolate on the MXU, as a [crop_w, W]
-// two-tap matrix per sample row (K4) or as the products Wy @ img and
-// Wx @ rows (K5). On the card a dense [crop, W] product would do W/2 times
-// the needed work in fp32, with no tensor core worth the cost, so both
-// kernels here read the two taps of each sample and drop the zeros.
-//
-// What they compute, for box n = (y1, x1, y2, x2) of image b, on a map of
-// height H (the same along x over W and crop_w):
+// Single-level TF crop_and_resize with the boxes grouped per image: one
+// kernel body for two TPU kernels,
+//   K4 feature_intertwiner_tpu/ops/roi_align.py::_roi_align_kernel
+//      (behind crop_and_resize_pallas; here crop_and_resize_grouped), and
+//   K5 feature_intertwiner_tpu/ops/roi_align.py::_roi_align_matmul_kernel
+//      (behind crop_and_resize_pallas_mm; crop_and_resize_grouped_mm).
+// Both hold a channel tile of the whole map in VMEM and interpolate on the
+// MXU, as a [crop_w, W] two-tap matrix per sample row (K4) or as Wy @ img
+// and Wx @ rows (K5), whose zeros cost nothing there. On the card each
+// column between a box's taps would be a load, so this reads only the four
+// taps of each sample. For box n = (y1, x1, y2, x2) of image b, on a map
+// of height H (the same along x over W and crop_w):
 //   step  = ((y2 - y1) * (H - 1)) / (crop_h - 1)      true division
 //   pos_i = y1 * (H - 1) + i * step                   (centre when crop is 1)
 //   lo, hi = floor(pos), ceil(pos) clamped to the map, f = pos - floor(pos)
-// K4 (extrapolation_value e): row = t + (b - t) * fy over the tap rows, then
-//   out = (1 - fx) * row[lo_x] + fx * row[hi_x];  e where pos_y or pos_x
-//   lies outside [0, dim - 1].
-// K5 (extrapolation 0): row = (1 - fy) * img[lo_y] + fy * img[hi_y] (weight
-//   exactly 1 when lo == hi, as _interp_matrix makes it), then the same x
-//   pass; 0 outside the map.
-// Everything in fp32 and in that order; the file is compiled with
-// -fmad=false, so no multiply and add is contracted and the plain PyTorch
-// versions in ops/roi_align.py round the same way.
+// K4: rl = tl + (bl - tl) * fy, rr = tr + (br - tr) * fy, out = (1 - fx) *
+//   rl + fx * rr, even where lo == hi; extrapolation_value where pos_y or
+//   pos_x lies outside [0, dim - 1]. K5: (1 - fy) * top + fy * bot over each
+//   tap column (the top tap alone where lo == hi, weight exactly 1, as
+//   _interp_matrix makes it), then the same along x; 0 outside the map.
+// fp32 in that order, compiled with -fmad=false, so nothing is contracted
+// and the plain versions in ops/roi_align.py round the same way.
 //
 // Bound on the card: bytes. Each output value reads its taps (mostly from
-// L2: neighbouring samples share them) and is written once; the work is a
-// few flops per value.
+// L2: neighbouring samples share them) and is written once.
 //
-// Design. K4: one block per (image, tile of kBoxTile boxes, sample row);
-// the threads run over (sample column, channel) with the channel fastest,
-// so every tap row is read coalesced, and the ragged edge of the box tile
-// is masked. K5: the TPU kernel's two products keep the zeros of a [crop,
-// W] interpolation matrix, which cost nothing on the MXU; on the card every
-// column between a box's taps would be a load. So K5 reads only the taps:
-// a block takes a few consecutive boxes (image-major, so that one image's
-// map is read while it is in L2; enough boxes for about kMmVectors output
-// vectors), computes their crop_h y taps and crop_w x taps once into
-// shared memory (16 bytes each), and after one barrier its threads run
-// over (box, sample row, sample column, group of V channels) with the
-// channels fastest. Each thread loads its four taps top[lo_x], top[hi_x],
-// bot[lo_x], bot[hi_x] as V-float vectors, takes the y pass of each tap
-// column and then the x pass in registers, and writes one vector with a
-// streaming store, so that the crops do not evict the map from L2. V is 4
-// when the channel count is a multiple of 4 and both the image and the
-// crops start on 16-byte boundaries, else 1 (the caller chooses; the entry
-// checks). No map row is kept in shared memory, so K5 takes any map width
-// and channel count.
+// Design (K1's, csrc/roi_align_fwd.cu; the lerp chosen at compile time).
+// The crops are a flat list of sample rows (box, row) of the [b * nb] box
+// list, image-major, so that one image's map is read while it is in L2. A
+// block takes rows_per_block consecutive rows (ops/roi_align.py::fwd_plan:
+// about 4,096 output vectors; a box's rows may span two blocks), stages once
+// each row's y taps (map-row pointers, lerp, validity) and its boxes' x taps
+// in shared memory, 32 and 16 bytes each, and crosses one barrier. Its
+// threads run over (row, column, group of V channels), channels fastest,
+// stepping those indices kThreads outputs at a time without a division, and
+// each issues the four tap loads of kUnroll outputs before their lerps. The
+// crops go out as streaming stores, so that they do not evict the map from
+// L2. V is 4 when C % 4 == 0 and the image and the crops start on 16-byte
+// boundaries (ops/roi_align.py::mm_vector_width; the entry refuses 4
+// otherwise: an unaligned vector access loses the CUDA context), else 1. No
+// map row is kept in shared memory: any map width (a row within INT_MAX
+// floats) and channel count.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
-#include <algorithm>
-
 namespace {
 
-constexpr int kBoxTile = 8;
 constexpr int kThreads = 256;
-constexpr int kMmVectors = 2048;         // K5: output vectors a block aims at
-constexpr int kMmBoxes = 32;             // K5: most boxes per block
-constexpr int kMmTapBytes = 48 * 1024;   // K5: most shared memory for the taps
+constexpr int kUnroll = 4;                // outputs a thread loads before their lerps
+constexpr int kSharedLimit = 48 * 1024;   // most shared memory for the staged taps
 
-struct __align__(16) Axis {
-  int lo;
-  int hi;
-  float frac;
-  bool valid;
-};
+// A sample's taps along one axis; staged for x with lo and hi in vectors
+// from the start of a map row.
+struct __align__(16) Axis { int lo, hi; float frac; int valid; };
+
+// A sample row's y taps: its two map rows (at channel 0 of column 0), lerp
+// and validity, and where its box's x taps start among the block's.
+template <typename T>
+struct __align__(16) RowTaps { const T *top, *bot; float frac; int cols, valid; };
+
+static_assert(sizeof(RowTaps<float>) == 32 && sizeof(RowTaps<float4>) == 32 &&
+                  sizeof(Axis) == 16,
+              "ops/roi_align.py::fwd_shared_bytes counts 32 and 16 bytes");
 
 // Sample position of sample i along one axis, rounded as K4 and K5 round it.
-__device__ __forceinline__ float sample_pos(float c0, float c1, int crop, int i,
-                                            float dm1) {
+__device__ __forceinline__ float sample_pos(float c0, float c1, int crop, int i, float dm1) {
   if (crop > 1) {
     const float step = __fdiv_rn(__fmul_rn(c1 - c0, dm1), (float)(crop - 1));
     return __fadd_rn(__fmul_rn(c0, dm1), __fmul_rn((float)i, step));
@@ -93,175 +84,180 @@ __device__ __forceinline__ Axis axis_taps(float pos, float dm1) {
   return a;
 }
 
-__global__ void crop_and_resize_kernel(const float* __restrict__ image,
-                                       const float* __restrict__ boxes,
-                                       int nb, int h, int w, int c, int crop_h,
-                                       int crop_w, float extrap,
-                                       float* __restrict__ out) {
-  const int tiles = (nb + kBoxTile - 1) / kBoxTile;
-  const int b = blockIdx.x / tiles;
-  const int tile = blockIdx.x % tiles;
-  const int i = blockIdx.y;
-  const float hm1 = (float)h - 1.0f;
-  const float wm1 = (float)w - 1.0f;
-  const float* img = image + (size_t)b * h * w * c;
-  const int per_box = crop_w * c;
-
-  for (int k = 0; k < kBoxTile; ++k) {
-    const int n = tile * kBoxTile + k;
-    if (n >= nb) break;  // the ragged edge of the last tile
-    const float* box = boxes + ((size_t)b * nb + n) * 4;
-    const float y1 = box[0], x1 = box[1], y2 = box[2], x2 = box[3];
-    const Axis ay = axis_taps(sample_pos(y1, y2, crop_h, i, hm1), hm1);
-    const float* top = img + (size_t)ay.lo * w * c;
-    const float* bot = img + (size_t)ay.hi * w * c;
-    float* dst = out + (((size_t)b * nb + n) * crop_h + i) * per_box;
-    for (int e = threadIdx.x; e < per_box; e += blockDim.x) {
-      const int j = e / c;
-      const int ch = e - j * c;
-      const Axis ax = axis_taps(sample_pos(x1, x2, crop_w, j, wm1), wm1);
-      float v = extrap;
-      if (ay.valid && ax.valid) {
-        const float tl = __ldg(top + (size_t)ax.lo * c + ch);
-        const float tr = __ldg(top + (size_t)ax.hi * c + ch);
-        const float bl = __ldg(bot + (size_t)ax.lo * c + ch);
-        const float br = __ldg(bot + (size_t)ax.hi * c + ch);
-        // the y lerp of each tap column, then the 2-tap x product
-        const float rl = __fadd_rn(tl, __fmul_rn(__fsub_rn(bl, tl), ay.frac));
-        const float rr = __fadd_rn(tr, __fmul_rn(__fsub_rn(br, tr), ay.frac));
-        v = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, ax.frac), rl),
-                      __fmul_rn(ax.frac, rr));
-      }
-      dst[e] = v;
-    }
-  }
-}
-
 __device__ __forceinline__ float lerp2(float a, float b, float wa, float wb) {
   return __fadd_rn(__fmul_rn(wa, a), __fmul_rn(wb, b));
 }
 
-__device__ __forceinline__ float4 lerp2(float4 a, float4 b, float wa, float wb) {
-  return make_float4(lerp2(a.x, b.x, wa, wb), lerp2(a.y, b.y, wa, wb),
-                     lerp2(a.z, b.z, wa, wb), lerp2(a.w, b.w, wa, wb));
+// One output value from its four taps: K5's separable passes or K4's
+// lerps. For a valid sample lo == hi exactly where the lerp is 0.
+template <bool kSeparable>
+__device__ __forceinline__ float interp(float tl, float tr, float bl, float br, float fx,
+                                        float fy) {
+  if constexpr (kSeparable) {
+    const float wy = __fsub_rn(1.0f, fy);
+    const float rl = fy == 0.0f ? tl : lerp2(tl, bl, wy, fy);
+    const float rr = fy == 0.0f ? tr : lerp2(tr, br, wy, fy);
+    return fx == 0.0f ? rl : lerp2(rl, rr, __fsub_rn(1.0f, fx), fx);
+  }
+  const float rl = __fadd_rn(tl, __fmul_rn(__fsub_rn(bl, tl), fy));
+  const float rr = __fadd_rn(tr, __fmul_rn(__fsub_rn(br, tr), fy));
+  return lerp2(rl, rr, __fsub_rn(1.0f, fx), fx);
 }
 
-// T is float (V = 1) or float4 (V = 4); cv = channels / V. Boxes
-// [first, first + per_block) of the flat [b * nb] list; taps holds each
-// box's crop_h y taps, then its crop_w x taps.
-template <typename T>
+template <bool kSeparable>
+__device__ __forceinline__ float4 interp(float4 tl, float4 tr, float4 bl, float4 br, float fx,
+                                         float fy) {
+  return make_float4(interp<kSeparable>(tl.x, tr.x, bl.x, br.x, fx, fy),
+                     interp<kSeparable>(tl.y, tr.y, bl.y, br.y, fx, fy),
+                     interp<kSeparable>(tl.z, tr.z, bl.z, br.z, fx, fy),
+                     interp<kSeparable>(tl.w, tr.w, bl.w, br.w, fx, fy));
+}
+
+// T is float (V = 1) or float4 (V = 4); cv = channels / V. Rows [first,
+// first + rows_per_block) of the flat [b * nb * crop_h] list.
+template <typename T, bool kSeparable>
 __global__ void __launch_bounds__(kThreads)
-crop_and_resize_mm_kernel(const T* __restrict__ image, const float* __restrict__ boxes,
-                          int total, int nb, int h, int w, int cv, int crop_h, int crop_w,
-                          int per_block, T* __restrict__ out) {
-  extern __shared__ Axis taps[];
-  const int first = blockIdx.x * per_block;
-  const int count = min(per_block, total - first);
-  const int stride = crop_h + crop_w;
-  const float hm1 = (float)h - 1.0f;
-  const float wm1 = (float)w - 1.0f;
-  for (int e = threadIdx.x; e < count * stride; e += blockDim.x) {
-    const int u = e / stride;
-    const int s = e - u * stride;
-    const float* box = boxes + 4 * ((size_t)first + u);
-    taps[e] = s < crop_h
-                  ? axis_taps(sample_pos(box[0], box[2], crop_h, s, hm1), hm1)
-                  : axis_taps(sample_pos(box[1], box[3], crop_w, s - crop_h, wm1), wm1);
+grouped_crop_kernel(const T* __restrict__ image, const float* __restrict__ boxes,
+                    int total_rows, int nb, int h, int w, int cv, int crop_h, int crop_w,
+                    int rows_per_block, T extrap, T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char staged[];
+  RowTaps<T>* rows = reinterpret_cast<RowTaps<T>*>(staged);
+  Axis* cols = reinterpret_cast<Axis*>(staged + rows_per_block * sizeof(RowTaps<T>));
+  const int first = blockIdx.x * rows_per_block;
+  const int count = min(rows_per_block, total_rows - first);
+  const int box0 = first / crop_h;
+  const int boxes_here = (first + count - 1) / crop_h - box0 + 1;
+  const float hm1 = (float)h - 1.0f, wm1 = (float)w - 1.0f;
+  const size_t map_row = (size_t)w * cv;
+
+  // Stage each row's y taps, then each box's x taps.
+  for (int e = threadIdx.x; e < count + boxes_here * crop_w; e += kThreads) {
+    if (e < count) {
+      const int n = (first + e) / crop_h;
+      const float* box = boxes + 4 * (size_t)n;
+      const Axis ty = axis_taps(sample_pos(box[0], box[2], crop_h, first + e - n * crop_h, hm1),
+                                hm1);
+      const T* img = image + (size_t)(n / nb) * h * map_row;
+      rows[e] = RowTaps<T>{img + ty.lo * map_row, img + ty.hi * map_row, ty.frac,
+                           (n - box0) * crop_w, ty.valid};
+    } else {
+      const int u = e - count;
+      const int m = u / crop_w;
+      const float* box = boxes + 4 * ((size_t)box0 + m);
+      Axis tx = axis_taps(sample_pos(box[1], box[3], crop_w, u - m * crop_w, wm1), wm1);
+      tx.lo *= cv;
+      tx.hi *= cv;
+      cols[u] = tx;
+    }
   }
   __syncthreads();
 
-  const int row = crop_w * cv;  // vectors per sample row
-  const int per_box = crop_h * row;
-  T* dst = out + (size_t)first * per_box;
-  for (int e = threadIdx.x; e < count * per_box; e += blockDim.x) {
-    const int u = e / per_box;
-    int r = e - u * per_box;
-    const int i = r / row;
-    r -= i * row;
-    const int j = r / cv;
-    const int k = r - j * cv;
-    const Axis ay = taps[u * stride + i];
-    const Axis ax = taps[u * stride + crop_h + j];
-    T v{};
-    if (ay.valid && ax.valid) {
-      const T* img = image + (size_t)((first + u) / nb) * h * w * cv + k;
-      const T* top = img + (size_t)ay.lo * w * cv;
-      const T* bot = img + (size_t)ay.hi * w * cv;
-      const size_t xl = (size_t)ax.lo * cv;
-      const size_t xr = (size_t)ax.hi * cv;
-      // the four taps load together; a tap that repeats (lo == hi) reads
-      // the same address again
-      const T tl = __ldg(top + xl);
-      const T tr = __ldg(top + xr);
-      const T bl = __ldg(bot + xl);
-      const T br = __ldg(bot + xr);
-      // y pass of each tap column: (1 - fy) * top + fy * bot, the top tap
-      // alone (weight exactly 1) when lo == hi; then the same along x
-      const bool one_y = ay.lo == ay.hi;
-      const float wy = __fsub_rn(1.0f, ay.frac);
-      const T rl = one_y ? tl : lerp2(tl, bl, wy, ay.frac);
-      const T rr = one_y ? tr : lerp2(tr, br, wy, ay.frac);
-      v = ax.lo == ax.hi ? rl : lerp2(rl, rr, __fsub_rn(1.0f, ax.frac), ax.frac);
+  const int row_vecs = crop_w * cv;
+  const int total = count * row_vecs;
+  T* dst = out + (size_t)first * row_vecs;
+  // output e of the block is (row r, column j, vector k), e = (r * crop_w +
+  // j) * cv + k; a thread's next output is kThreads further on, so it steps
+  // (r, j, k) by the digits of kThreads instead of dividing each e
+  const int dr = kThreads / row_vecs;
+  const int dj = (kThreads - dr * row_vecs) / cv;
+  const int dk = kThreads - dr * row_vecs - dj * cv;
+  int r = threadIdx.x / row_vecs;
+  int j = (threadIdx.x - r * row_vecs) / cv;
+  int k = threadIdx.x - r * row_vecs - j * cv;
+  for (int base = threadIdx.x; base < total; base += kUnroll * kThreads) {
+    // the four taps of kUnroll outputs load together, then their lerps; a
+    // tap that repeats (lo == hi) reads the same address again
+    T tl[kUnroll], tr[kUnroll], bl[kUnroll], br[kUnroll];
+    float fx[kUnroll], fy[kUnroll];
+    bool ok[kUnroll];
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      ok[q] = false;
+      tl[q] = tr[q] = bl[q] = br[q] = T{};
+      fx[q] = fy[q] = 0.0f;
+      if (base + q * kThreads < total) {
+        const RowTaps<T> ty = rows[r];
+        const Axis tx = cols[ty.cols + j];
+        ok[q] = ty.valid && tx.valid;
+        fx[q] = tx.frac;
+        fy[q] = ty.frac;
+        if (ok[q]) {
+          tl[q] = __ldg(ty.top + tx.lo + k);
+          tr[q] = __ldg(ty.top + tx.hi + k);
+          bl[q] = __ldg(ty.bot + tx.lo + k);
+          br[q] = __ldg(ty.bot + tx.hi + k);
+        }
+      }
+      // one carry at most per digit: k + dk < 2 cv, j + dj + 1 < 2 crop_w
+      k += dk;
+      j += dj;
+      r += dr;
+      if (k >= cv) {
+        k -= cv;
+        ++j;
+      }
+      if (j >= crop_w) {
+        j -= crop_w;
+        ++r;
+      }
     }
-    __stcs(dst + e, v);
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      const int e = base + q * kThreads;
+      if (e < total) {
+        __stcs(dst + e, ok[q] ? interp<kSeparable>(tl[q], tr[q], bl[q], br[q], fx[q], fy[q])
+                              : extrap);
+      }
+    }
   }
+}
+
+template <bool kSeparable>
+int launch(const float* image, const float* boxes, int b, int nb, int h, int w, int c, int vec,
+           int crop_h, int crop_w, int rows_per_block, float extrap, float* out, void* stream) {
+  if (b < 1 || nb < 0 || h < 1 || w < 1 || c < 1 || crop_h < 1 || crop_w < 1 ||
+      rows_per_block < 1 || (vec != 1 && vec != 4) || (long long)w * c > INT_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const uintptr_t at = reinterpret_cast<uintptr_t>(image) | reinterpret_cast<uintptr_t>(out);
+  if (vec == 4 && ((c & 3) != 0 || (at & 15) != 0)) return (int)cudaErrorInvalidValue;
+  const int cv = c / vec;
+  const long long total_rows = (long long)b * nb * crop_h;
+  const long long block_vecs = (long long)rows_per_block * crop_w * cv;
+  // the block's rows' y taps, and the x taps of the most boxes they can touch
+  const long long smem = rows_per_block * (long long)sizeof(RowTaps<float>) +
+                         ((rows_per_block + crop_h - 2LL) / crop_h + 1) * crop_w * sizeof(Axis);
+  if (total_rows > INT_MAX || block_vecs > INT_MAX - kUnroll * kThreads || smem > kSharedLimit) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (nb == 0) return 0;
+  const unsigned blocks = (unsigned)((total_rows + rows_per_block - 1) / rows_per_block);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec == 4) {
+    grouped_crop_kernel<float4, kSeparable><<<blocks, kThreads, (size_t)smem, st>>>(
+        reinterpret_cast<const float4*>(image), boxes, (int)total_rows, nb, h, w, cv, crop_h,
+        crop_w, rows_per_block, make_float4(extrap, extrap, extrap, extrap),
+        reinterpret_cast<float4*>(out));
+  } else {
+    grouped_crop_kernel<float, kSeparable><<<blocks, kThreads, (size_t)smem, st>>>(
+        image, boxes, (int)total_rows, nb, h, w, cv, crop_h, crop_w, rows_per_block, extrap,
+        out);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // image [b, h, w, c] and boxes [b, nb, 4] float32, contiguous, in device
-// memory; out [b, nb, crop_h, crop_w, c] float32. Launches on `stream` and
-// returns the cudaError_t of the launch.
-extern "C" int crop_and_resize_grouped(const float* image, const float* boxes,
-                                       int b, int nb, int h, int w, int c,
-                                       int crop_h, int crop_w, float extrap,
-                                       float* out, void* stream) {
-  if (b < 1 || h < 1 || w < 1 || c < 1 || crop_h < 1 || crop_w < 1 ||
-      crop_h > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (nb == 0) return 0;
-  const long long blocks = (long long)b * ((nb + kBoxTile - 1) / kBoxTile);
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks, (unsigned)crop_h);
-  crop_and_resize_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      image, boxes, nb, h, w, c, crop_h, crop_w, extrap, out);
-  return (int)cudaGetLastError();
-}
-
-// As crop_and_resize_grouped, extrapolation 0, read vec (1 or 4) floats at
-// a time: vec 4 needs c % 4 == 0 and image and out on 16-byte boundaries.
-extern "C" int crop_and_resize_grouped_mm(const float* image, const float* boxes, int b,
-                                          int nb, int h, int w, int c, int vec, int crop_h,
-                                          int crop_w, float* out, void* stream) {
-  if (b < 1 || h < 1 || w < 1 || c < 1 || crop_h < 1 || crop_w < 1 ||
-      (vec != 1 && vec != 4)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const uintptr_t at = reinterpret_cast<uintptr_t>(image) | reinterpret_cast<uintptr_t>(out);
-  if (vec == 4 && ((c & 3) != 0 || (at & 15) != 0)) return (int)cudaErrorInvalidValue;
-  if (nb == 0) return 0;
-  const long long total = (long long)b * nb;
-  const int cv = c / vec;
-  const long long per_box = (long long)crop_h * crop_w * cv;
-  const long long stride = (long long)crop_h + crop_w;
-  // boxes per block: about kMmVectors output vectors, at most kMmBoxes
-  // boxes, their taps within kMmTapBytes of shared memory
-  long long per_block = std::min<long long>(kMmBoxes, std::max(1LL, kMmVectors / per_box));
-  per_block = std::min<long long>(per_block, kMmTapBytes / (stride * (long long)sizeof(Axis)));
-  if (total > INT_MAX || per_block < 1 || per_box * per_block > INT_MAX) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const unsigned blocks = (unsigned)((total + per_block - 1) / per_block);
-  const size_t smem = (size_t)(per_block * stride) * sizeof(Axis);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (vec == 4) {
-    crop_and_resize_mm_kernel<float4><<<blocks, kThreads, smem, st>>>(
-        reinterpret_cast<const float4*>(image), boxes, (int)total, nb, h, w, cv, crop_h,
-        crop_w, (int)per_block, reinterpret_cast<float4*>(out));
-  } else {
-    crop_and_resize_mm_kernel<float><<<blocks, kThreads, smem, st>>>(
-        image, boxes, (int)total, nb, h, w, cv, crop_h, crop_w, (int)per_block, out);
-  }
-  return (int)cudaGetLastError();
+// memory; out [b, nb, crop_h, crop_w, c] float32. separable: K5 (its
+// extrapolation is 0) or K4. vec: floats read and written at a time, 1 or 4
+// (4 needs c % 4 == 0 and image and out on 16-byte boundaries).
+// rows_per_block: the plan of ops/roi_align.py::fwd_plan (its staged taps
+// within kSharedLimit). Launches on `stream`, returns the launch's error.
+extern "C" int crop_and_resize_grouped(const float* image, const float* boxes, int b, int nb,
+                                       int h, int w, int c, int separable, int vec, int crop_h,
+                                       int crop_w, int rows_per_block, float extrap, float* out,
+                                       void* stream) {
+  return (separable ? launch<true> : launch<false>)(image, boxes, b, nb, h, w, c, vec, crop_h,
+                                                    crop_w, rows_per_block, extrap, out, stream);
 }

@@ -262,8 +262,9 @@ def _fwd_library() -> ctypes.CDLL:
     return lib
 
 
-# The forward kernel's plan: output vectors a block aims at; and
-# csrc/roi_align_fwd.cu's constants: threads per block (kThreads), the bytes
+# The forward kernels' plan: output vectors a block aims at; and the
+# constants of csrc/roi_align_fwd.cu (K1) and csrc/crop_and_resize.cu (K4,
+# K5), which stage their taps alike: threads per block (kThreads), the bytes
 # of one row's staged y taps and of one column's x taps, and the most shared
 # memory for them (kSharedLimit).
 FWD_VECTORS = 4096
@@ -295,17 +296,18 @@ def _fwd_rows(crop_size: Tuple[int, int], vectors_per_row: int) -> int:
     while rows > 1 and fwd_shared_bytes(rows, crop_size) > FWD_SHARED_BYTES:
         rows -= 1
     if fwd_shared_bytes(rows, crop_size) > FWD_SHARED_BYTES:
-        raise ValueError(f"roi_align_fwd: a {crop_size[1]}-wide crop's taps do not fit "
+        raise ValueError(f"fwd_plan: a {crop_size[1]}-wide crop's taps do not fit "
                          f"{FWD_SHARED_BYTES} bytes of shared memory")
     return rows
 
 
 def fwd_plan(n: int, crop_size: Tuple[int, int], channels: int, vec: int) -> Tuple[int, int, int]:
-    """How the forward kernel splits ``n`` boxes' crops: ``(rows per block,
-    blocks, shared bytes per block)``. The crops are ``n * crop_h`` sample
-    rows of ``crop_w * channels / vec`` output vectors; a block takes about
-    ``FWD_VECTORS`` vectors of consecutive rows (at least one row), as many
-    as its staged taps leave room for."""
+    """How the forward kernels (K1; K4 and K5 with ``n = B * NB``) split
+    ``n`` boxes' crops: ``(rows per block, blocks, shared bytes per block)``.
+    The crops are ``n * crop_h`` sample rows of ``crop_w * channels / vec``
+    output vectors; a block takes about ``FWD_VECTORS`` vectors of
+    consecutive rows (at least one row), as many as its staged taps leave
+    room for."""
     ch, cw = (int(v) for v in crop_size)
     rows = _fwd_rows((ch, cw), cw * (channels // vec))
     return rows, -(-n * ch // rows), fwd_shared_bytes(rows, (ch, cw))
@@ -765,32 +767,36 @@ def _check_grouped(name: str, image: torch.Tensor, boxes: torch.Tensor) -> None:
         raise ValueError(f"{name} needs a contiguous NHWC image and contiguous boxes")
 
 
-# The C entry points' parameters between the shapes and the output:
-# K4 (crop_h, crop_w, extrapolation), K5 (vector width, crop_h, crop_w).
-_GROUPED_PARAMS = {
-    "crop_and_resize_grouped": [ctypes.c_int, ctypes.c_int, ctypes.c_float],
-    "crop_and_resize_grouped_mm": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
-}
+@functools.lru_cache(maxsize=None)
+def _grouped_library() -> ctypes.CDLL:
+    """``csrc/crop_and_resize.cu``'s library with its entry point typed."""
+    lib = cuda_build.load("crop_and_resize")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.crop_and_resize_grouped.restype = i32
+    lib.crop_and_resize_grouped.argtypes = [ptr, ptr] + [i32] * 10 + [ctypes.c_float, ptr, ptr]
+    return lib
 
 
-def _launch_grouped(entry: str, image: torch.Tensor, boxes: torch.Tensor, crop_size,
-                    *params) -> torch.Tensor:
-    """Launch one entry point of ``csrc/crop_and_resize.cu`` on the current
-    stream: [B, NB, ch, cw, C] float32 crops."""
+def _launch_grouped(name: str, image: torch.Tensor, boxes: torch.Tensor, crop_size,
+                    extrapolation_value: float) -> torch.Tensor:
+    """Launch ``csrc/crop_and_resize.cu`` on the current stream as K4
+    (``crop_and_resize_grouped``) or K5 (``crop_and_resize_grouped_mm``,
+    extrapolation 0): [B, NB, ch, cw, C] float32 crops. A block takes the
+    :func:`fwd_plan` rows of K1: the kernel stages its taps as K1 does."""
     b, h, w, c = image.shape
     nb = boxes.shape[1]
     out = torch.empty((b, nb, *crop_size, c), dtype=torch.float32, device=image.device)
-    fn = getattr(cuda_build.load("crop_and_resize"), entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5
-                   + _GROUPED_PARAMS[entry] + [ctypes.c_void_p, ctypes.c_void_p])
+    vec = mm_vector_width(image)
+    rows, _, _ = fwd_plan(b * nb, crop_size, c, vec)
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
-        err = fn(image.data_ptr(), boxes.data_ptr(), b, nb, h, w, c, *params, out.data_ptr(),
-                 stream)
-    cuda_build.check(err, entry)
+        err = _grouped_library().crop_and_resize_grouped(
+            image.data_ptr(), boxes.data_ptr(), b, nb, h, w, c,
+            int(name == "crop_and_resize_grouped_mm"), vec, *crop_size, rows,
+            extrapolation_value, out.data_ptr(), stream)
+    cuda_build.check(err, name)
     if nb > 0:  # the C entry launches nothing for no boxes
-        cuda_build.launches[entry] += 1
+        cuda_build.launches[name] += 1
     return out
 
 
@@ -810,14 +816,14 @@ def crop_and_resize_grouped(image: torch.Tensor, boxes: torch.Tensor,
     crop = tuple(int(v) for v in crop_size)
     if image.device.type == "cpu":
         return crop_and_resize_grouped_plain(image, boxes, crop, extrapolation_value)
-    return _launch_grouped("crop_and_resize_grouped", image, boxes, crop, *crop,
+    return _launch_grouped("crop_and_resize_grouped", image, boxes, crop,
                            float(extrapolation_value))
 
 
 def mm_vector_width(image: torch.Tensor) -> int:
-    """Floats K5 reads and writes at a time: 4 when the channel count is a
-    multiple of 4 and the image starts on a 16-byte boundary (every map row
-    then does, and the crops the wrapper allocates always do), else 1."""
+    """Floats K4 and K5 read and write at a time: 4 when the channel count
+    is a multiple of 4 and the image starts on a 16-byte boundary (every map
+    row then does, and the crops the wrapper allocates always do), else 1."""
     return 4 if image.shape[-1] % 4 == 0 and image.data_ptr() % 16 == 0 else 1
 
 
@@ -826,8 +832,8 @@ def crop_and_resize_grouped_mm(image: torch.Tensor, boxes: torch.Tensor,
     """The same crop as :func:`crop_and_resize_grouped` with extrapolation 0,
     as two separable interpolation passes, any map width and channel count.
 
-    Kernel wrapper: on CUDA tensors it launches the second entry point of
-    ``csrc/crop_and_resize.cu`` (which replaces ``feature_intertwiner_tpu/
+    Kernel wrapper: on CUDA tensors it launches ``csrc/crop_and_resize.cu``
+    as K5 (which replaces ``feature_intertwiner_tpu/
     ops/roi_align.py::_roi_align_matmul_kernel``, behind
     ``crop_and_resize_pallas_mm``); on CPU tensors it runs
     :func:`crop_and_resize_grouped_mm_plain`. Each launch adds one to
@@ -836,8 +842,7 @@ def crop_and_resize_grouped_mm(image: torch.Tensor, boxes: torch.Tensor,
     crop = tuple(int(v) for v in crop_size)
     if image.device.type == "cpu":
         return crop_and_resize_grouped_mm_plain(image, boxes, crop)
-    return _launch_grouped("crop_and_resize_grouped_mm", image, boxes, crop,
-                           mm_vector_width(image), *crop)
+    return _launch_grouped("crop_and_resize_grouped_mm", image, boxes, crop, 0.0)
 
 
 class CropAndResizeFused(torch.autograd.Function):

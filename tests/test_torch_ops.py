@@ -498,9 +498,11 @@ def test_fwd_plan_covers_every_sample_row_once_within_the_launch_limits(crop, ch
             row = cw * (channels // vec)
             assert (rows == max(1, FWD_VECTORS // row)
                     or fwd_shared_bytes(rows + 1, crop) > FWD_SHARED_BYTES)
-    source = (cuda_build.CSRC_DIR / "roi_align_fwd.cu").read_text()
-    assert f"kThreads = {FWD_THREADS};" in source
-    assert f"kSharedLimit = {FWD_SHARED_BYTES // 1024} * 1024;" in source
+    for name in ("roi_align_fwd", "crop_and_resize"):   # K1, and K4/K5, which stage alike
+        source = (cuda_build.CSRC_DIR / f"{name}.cu").read_text()
+        assert f"kThreads = {FWD_THREADS};" in source
+        assert f"kSharedLimit = {FWD_SHARED_BYTES // 1024} * 1024;" in source
+        assert "fwd_shared_bytes counts 32 and 16 bytes" in source
 
 
 def _at(offset_floats, shape):

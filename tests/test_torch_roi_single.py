@@ -85,6 +85,116 @@ def test_grouped_mm_crop_matches_pallas_kernel(crop_case, crop):
     np.testing.assert_allclose(got, k4, rtol=0, atol=1e-5)
 
 
+def _grouped_axis_taps(c0, c1, crop, idx, dim):
+    """csrc/crop_and_resize.cu: ``sample_pos`` (a true division, no fused
+    multiply-add) then ``axis_taps`` for sample ``idx`` of each staged entry
+    -> lo, hi (int64), frac, valid."""
+    dm1 = torch.tensor(float(dim - 1))
+    if crop > 1:
+        step = ((c1 - c0) * dm1) / torch.tensor(float(crop - 1))
+        pos = c0 * dm1 + idx.float() * step
+    else:
+        pos = (0.5 * (c0 + c1)) * dm1
+    lo = torch.floor(pos)
+    clamp = lambda v: torch.minimum(torch.maximum(v, torch.zeros_like(v)), dm1).long()  # noqa: E731
+    return clamp(lo), clamp(torch.ceil(pos)), pos - lo, (pos >= 0.0) & (pos <= dm1)
+
+
+def _grouped_kernel_model(image, boxes, crop, extrap, vec):
+    """csrc/crop_and_resize.cu in torch, as K4 (``extrap`` a float) or K5
+    (``extrap`` None): the ``fwd_plan`` blocks over the flat (box, sample
+    row) list; each block's staged row taps (map rows as vector offsets into
+    the flat image) and the x taps of the boxes it touches; then each
+    thread's outputs, stepped by the digits of 256 as the kernel steps them,
+    V-wide loads and the kernel's lerps. Returns the crops and how often each
+    output vector was written."""
+    b, h, w, c = image.shape
+    nb, (ch, cw) = boxes.shape[1], crop
+    assert vec == 1 or (c % 4 == 0 and image.data_ptr() % 16 == 0)   # the entry refuses it
+    cv, map_row = c // vec, w * (c // vec)
+    rows_pb, blocks, shared = ra.fwd_plan(b * nb, crop, c, vec)
+    pixels = image.reshape(-1, vec)
+    flat = boxes.reshape(-1, 4)
+    out = torch.full((b * nb * ch * cw * cv, vec), float("nan"))
+    written = torch.zeros(out.shape[0], dtype=torch.int64)
+    for block in range(blocks):
+        first = block * rows_pb
+        count = min(rows_pb, b * nb * ch - first)
+        box0 = first // ch
+        boxes_here = (first + count - 1) // ch - box0 + 1
+        assert count * ra.FWD_ROW_BYTES + boxes_here * cw * ra.FWD_COL_BYTES <= shared
+        # staged y taps of the block's rows, x taps of the boxes it touches
+        rn = torch.arange(first, first + count) // ch
+        ylo, yhi, fy, vy = _grouped_axis_taps(flat[rn, 0], flat[rn, 2], ch,
+                                              torch.arange(first, first + count) - rn * ch, h)
+        img = (rn // nb) * h * map_row
+        top, bot, cols = img + ylo * map_row, img + yhi * map_row, (rn - box0) * cw
+        u = torch.arange(boxes_here * cw)
+        xlo, xhi, fx, vx = _grouped_axis_taps(flat[box0 + u // cw, 1], flat[box0 + u // cw, 3],
+                                              cw, u % cw, w)
+        xlo, xhi = xlo * cv, xhi * cv
+        # thread t takes outputs t, t + 256, ...: one division for its first
+        # (row, column, vector), then a step by the digits of 256
+        total, row_vecs = count * cw * cv, cw * cv
+        t = torch.arange(ra.FWD_THREADS)
+        dr = ra.FWD_THREADS // row_vecs
+        dj = (ra.FWD_THREADS - dr * row_vecs) // cv
+        dk = ra.FWD_THREADS - dr * row_vecs - dj * cv
+        r, j, k = t // row_vecs, t % row_vecs // cv, t % cv
+        steps = []
+        for step in range(-(-total // ra.FWD_THREADS)):
+            live = t + step * ra.FWD_THREADS < total
+            steps.append((t[live] + step * ra.FWD_THREADS, r[live], j[live], k[live]))
+            k, j, r = k + dk, j + dj, r + dr
+            j, k = j + (k >= cv).long(), torch.where(k >= cv, k - cv, k)
+            r, j = r + (j >= cw).long(), torch.where(j >= cw, j - cw, j)
+        e, r, j, k = (torch.cat(v) for v in zip(*steps))
+        assert torch.equal((r * cw + j) * cv + k, e)
+        col = cols[r] + j
+        ok = vy[r] & vx[col]
+        tl, tr, bl, br = (torch.where(ok[:, None], pixels[torch.where(ok, at, 0)], 0.0)
+                          for at in (top[r] + xlo[col] + k, top[r] + xhi[col] + k,
+                                     bot[r] + xlo[col] + k, bot[r] + xhi[col] + k))
+        ly, lx = fy[r][:, None], fx[col][:, None]
+        if extrap is None:   # K5: the top (left) tap alone where its lerp is 0
+            wy = 1.0 - ly
+            rl = torch.where(ly == 0.0, tl, wy * tl + ly * bl)
+            rr = torch.where(ly == 0.0, tr, wy * tr + ly * br)
+            v = torch.where(lx == 0.0, rl, (1.0 - lx) * rl + lx * rr)
+        else:
+            rl = tl + (bl - tl) * ly
+            rr = tr + (br - tr) * ly
+            v = (1.0 - lx) * rl + lx * rr
+        out[first * row_vecs + e] = torch.where(ok[:, None], v, torch.tensor(extrap or 0.0))
+        written[first * row_vecs + e] += 1
+    return out.reshape(b, nb, ch, cw, c), written
+
+
+@pytest.mark.parametrize("crop", [(1, 1), (7, 7), (5, 9)])
+@pytest.mark.parametrize("extrap", [0.0, -1.5, None], ids=["K4-0", "K4-1.5", "K5"])
+@pytest.mark.parametrize("channels, vec", [(5, 1), (64, 4)])
+def test_grouped_kernel_model_matches_plain(crop, extrap, channels, vec):
+    """The shared K4/K5 body, walked block by block and thread by thread
+    (:func:`_grouped_kernel_model`), equals the plain version bit for bit and
+    writes every output once: boxes out of range, inverted and degenerate,
+    a ragged last block, and (crops taller than 1) a box whose sample rows
+    span two blocks."""
+    rng = np.random.RandomState(16)
+    image = T(rng.randn(2, 12, 15, channels).astype(np.float32))
+    boxes = T(_grouped_boxes(rng, 2, 11))
+    rows, blocks, _ = ra.fwd_plan(22, crop, channels, vec)
+    assert 22 * crop[0] % rows                                    # a ragged last block
+    assert crop[0] == 1 or rows % crop[0]                         # a box over two blocks
+    got, written = _grouped_kernel_model(image, boxes, crop, extrap, vec)
+    assert bool((written == 1).all())
+    if extrap is None:
+        want = ra.crop_and_resize_grouped_mm_plain(image, boxes, crop)
+    else:
+        want = ra.crop_and_resize_grouped_plain(image, boxes, crop, extrap)
+        assert not extrap or bool((got == extrap).any())
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("extrap", [0.0, -1.5])
 def test_fused_gradient_matches_jax(monkeypatch, extrap):
     """``jax.grad`` through JAX's ``crop_and_resize_fused`` (its Pallas
@@ -196,7 +306,7 @@ def _map_at(offset_floats, channels, h=4, w=5):
 @pytest.mark.parametrize("offset, channels, width", [
     (0, 256, 4), (4, 8, 4),            # 16-byte aligned rows
     (0, 3, 1), (0, 6, 1),              # rows that start anywhere
-    (1, 256, 1)])                      # a view 4 bytes off a 16-byte boundary
+    (1, 256, 1), (2, 256, 1), (3, 8, 1)])  # views 4, 8 and 12 bytes off a 16-byte boundary
 def test_mm_vector_width(offset, channels, width):
     image = _map_at(offset, channels)
     assert image.is_contiguous() and image.shape[-1] == channels
