@@ -82,9 +82,14 @@ Phases, each of which must pass:
    K5's at the stage shapes, under torch.profiler (registers, shared
    memory, estimated occupancy);
 10. window_probe: the ``window`` sweep (K6 on a [8, 256, 256, 256] bf16 map
-   at 4096 windows of 8x8 to 64x64), each size against its plain version
-   on the timed map and origins within 1e-5 of the windows' sums of
-   magnitudes, with GB/s and bound;
+   at 4096 windows of 8x8 to 64x64), each size bit-equal to its plain
+   version on the timed map and origins and over two launches, beside its
+   bytes bound, its adds bound (one issue slot per fp32 add) and its share
+   of the larger; then K6 bit-equal likewise on windows out of the map,
+   repeated origins, a group over two images, sx 5 and 12, a float32 map
+   whose rows are staged in pieces, C = 66, a map 4 bytes off an 8-byte
+   boundary (two channels per thread) and no windows, staged and read
+   directly; and K6's kernels under torch.profiler at 8x8 and 64x64;
 11. eval_path: ``test_model`` (bbox and segm) with the flagship model over
    16 synthetic images, counted from 0: K1 twice and K2 at least twice per
    batch of TEST.BATCH_SIZE, every call held against its plain version on
@@ -115,6 +120,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
 H100_FP32_OPS_PER_S = 67e12     # fp32 outside the tensor cores
+# fp32 adds outside the tensor cores: an add takes one issue slot of a lane,
+# 132 SMs x 128 lanes x 1.98 GHz (the 67e12 above counts an FMA as two)
+H100_FP32_ADDS_PER_S = 33.5e12
 # fp32 operations of greedy NMS, counted on ops/nms.py::_pairwise_iou with
 # each box's area computed once: per pair 4 max/min, 4 sub/add (the two
 # extents), 2 clamps, 1 mul (intersection), 2 add/sub (union), 1 div and the
@@ -1467,54 +1475,118 @@ def main() -> int:
     # 10. the window probe K6 ---------------------------------------------------------
     def window_probe():
         """The ``window`` sweep of tools/profile_roi.py (launches counted from
-        0), then each size's K6 against its plain version on the map and
-        origins the sweep timed, relative to the windows' sums of magnitudes."""
-        from feature_intertwiner_tpu_torch.ops.window_sum import window_sum, window_sum_plain
+        0), then each size's K6 on the map and origins the sweep timed, bit
+        for bit against its plain version and over two launches, with its
+        bytes and adds bounds; K6 on the hard cases, bit-equal likewise; and
+        K6's kernels under torch.profiler at 8x8 and 64x64."""
+        import numpy as np
+
+        from feature_intertwiner_tpu_torch.ops import window_sum as ws
+
+        def bits(a, b):
+            return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
         cuda_build.launches.clear()
         rows = profile_roi.window(batch=8, size=256, boxes=4096, reps=5, device="cuda")
         launches = cuda_build.launches["window_sum"]
-        k6_rows = [r for r in rows if r["fn"] is window_sum]
-        err, abs_err, ms, plain_ms, nbytes, ops = 0.0, 0.0, 0.0, 0.0, 0, 0
+        k6_rows = [r for r in rows if r["fn"] is ws.window_sum]
+        abs_err, ms, plain_ms, bound_ms, adds_bound_ms = 0.0, 0.0, 0.0, 0.0, 0.0
         for r in k6_rows:
             img, o, sy, sx = r["args"]
-            got, want = r["fn"](*r["args"]), window_sum_plain(*r["args"])
-            mag = window_sum_plain(img.abs(), o, sy, sx)
+            got, again, want = r["fn"](*r["args"]), r["fn"](*r["args"]), ws.window_sum_plain(*r["args"])
             torch.cuda.synchronize()
-            e = float(((got - want).abs() / mag.clamp_min(1e-30)).max())
-            err, abs_err = max(err, e), max(abs_err, float((got - want).abs().max()))
-            p_ms = cuda_ms(torch, lambda: window_sum_plain(img, o, sy, sx), 1)
-            n_el = o.shape[0] * sy * sx * img.shape[3]
+            same = bits(got, want) and bits(got, again)
+            err = float((got - want).abs().max())
+            abs_err = max(abs_err, err)
+            p_ms = cuda_ms(torch, lambda: ws.window_sum_plain(img, o, sy, sx), 1)
             # least bytes: the map pixels some window covers, read once (the
-            # windows overlap, and L2 serves the repeats), the origins, and
-            # the sums written once; operations: one add per window element
+            # windows overlap), the origins, and the sums written once; adds:
+            # one fp32 add per window element, one issue slot each
             covered = covered_pixels(torch, o, img.shape, sy, sx)
             call_bytes = covered * img.shape[3] * img.element_size() + o.numel() * 4 + got.numel() * 4
             b_ms = call_bytes / H100_BYTES_PER_S * 1e3
-            w_ms = r["bytes"] / H100_BYTES_PER_S * 1e3
-            log(f"  window_sum {sy}x{sx}: rel err {e:.3g}, {r['ms']:.4f} ms, {r['GB/s']:.1f} GB/s "
-                f"of {r['bytes']} window bytes (those bytes at the HBM rate: {w_ms:.4f} ms); "
-                f"bound {call_bytes} bytes ({covered} pixels covered) -> {b_ms:.4f} ms; "
-                f"plain {p_ms:.3f} ms")
+            a_ms = o.shape[0] * sy * sx * img.shape[3] / H100_FP32_ADDS_PER_S * 1e3
+            plan = ws.window_plan(o.shape[0], sy, sx, img.shape[3], img.dtype, img.shape[2],
+                                  ws.window_vec(img))
+            log(f"  window_sum {sy}x{sx}: bit-equal to plain and over two launches {same} (max "
+                f"|diff| {err:.3g}), {r['ms']:.4f} ms, {r['GB/s']:.1f} GB/s of {r['bytes']} window "
+                f"bytes; bound: bytes {b_ms:.4f} ms ({covered} pixels covered), adds "
+                f"{a_ms:.4f} ms -> {max(b_ms, a_ms) / r['ms']:.1%} of bound; plain {p_ms:.3f} ms; "
+                f"group {plan.group}, {plan.blocks} blocks, {plan.shared} B shared")
+            require(same, f"window_sum {sy}x{sx} differs from its plain version or between launches")
             ms, plain_ms = ms + r["ms"], plain_ms + p_ms
-            nbytes += call_bytes
-            ops += n_el
+            bound_ms += max(b_ms, a_ms)
+            adds_bound_ms += a_ms if a_ms > b_ms else 0.0
         for r in rows:
             if r["route"].startswith("row_gather"):
                 log(f"  {r['route']}: {r['ms']:.4f} ms, {r['GB/s']:.1f} GB/s of {r['bytes']} bytes")
-        log(f"WINDOW LAUNCHES {launches}")
+        log(f"WINDOW LAUNCHES {launches}; sweep {ms:.4f} ms against a bound of {bound_ms:.4f} "
+            f"({bound_ms / ms:.1%})")
         require(len(k6_rows) == 7 and launches >= len(k6_rows),
                 f"window_sum launched {launches} times over {len(k6_rows)} sizes")
-        require(err <= 1e-5, f"window_sum differs from its plain version by {err} relative")
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = ops / H100_FP32_OPS_PER_S * 1e3
+
+        # the hard cases, each bit-equal to the plain version over two launches
+        g = np.random.RandomState(5)
+        dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+
+        def origins_for(n, b, h, w, sy, sx):
+            return np.stack([g.randint(0, b, n), g.randint(0, h - sy + 1, n),
+                             g.randint(0, (w - sx) // 8 + 1, n)], 1).astype(np.int32)
+
+        m = dev(g.randn(2, 128, 80, 256).astype(np.float32)).bfloat16()
+        mixed = origins_for(100, 2, 128, 80, 48, 12)
+        mixed[:, 0] = np.r_[np.zeros(40), np.ones(60)]        # a group over both images
+        mixed[50:55] = mixed[10]                              # repeated origins
+        mixed[90:] = [[-1, 0, 0], [2, 0, 0], [0, 100, 0], [0, -1, 0], [1, 0, 9], [1, 0, -1],
+                      [0, 81, 1], [1, 20, 8], [5, 5, 5], [0, 128, 0]]   # 9 out of the map
+        thin = origins_for(300, 2, 128, 80, 112, 5)
+        fp = dev(g.randn(2, 48, 320, 256).astype(np.float32))
+        m66 = dev(g.randn(2, 40, 64, 66).astype(np.float32)).bfloat16()
+        off = torch.zeros(m.numel() + 2, dtype=torch.bfloat16, device="cuda")[2:].view(m.shape)
+        off.copy_(m)                                         # 4 bytes off an 8-byte boundary
+        none = np.zeros((0, 3), np.int32)
+        cases = [("bf16, out of the map, repeated, over two images", m, mixed, 48, 12),
+                 ("bf16, the same origins, read directly", m, mixed, 4, 4),
+                 ("bf16, sx 5", m, thin, 112, 5), ("bf16, sx 5, read directly", m, thin, 8, 5),
+                 ("bf16, sx 12, read directly", m, mixed, 8, 12),
+                 ("fp32, rows in three pieces", fp, origins_for(500, 2, 48, 320, 16, 32), 16, 32),
+                 ("fp32, read directly", fp, origins_for(500, 2, 48, 320, 8, 8), 8, 8),
+                 ("bf16, C = 66", m66, origins_for(130, 2, 40, 64, 16, 32), 16, 32),
+                 ("fp32, C = 66", m66.float(), origins_for(130, 2, 40, 64, 16, 32), 16, 32),
+                 ("bf16, C = 66, read directly", m66, origins_for(130, 2, 40, 64, 4, 4), 4, 4),
+                 ("bf16, V = 2 on a map off an 8-byte boundary", off, mixed, 48, 12),
+                 ("no windows", m, none, 16, 32), ("no windows, read directly", m, none, 4, 4)]
+        for name, im, org, sy, sx in cases:
+            o = dev(org)
+            cuda_build.launches.clear()
+            got, again = ws.window_sum(im, o, sy, sx), ws.window_sum(im, o, sy, sx)
+            want = ws.window_sum_plain(im, o, sy, sx)
+            torch.cuda.synchronize()
+            plan = ws.window_plan(o.shape[0], sy, sx, im.shape[3], im.dtype, im.shape[2],
+                                  ws.window_vec(im))
+            same = bits(got, want) and bits(got, again)
+            log(f"  window_sum {name} ({o.shape[0]} windows of {sy}x{sx} on "
+                f"{list(im.shape)}): bit-equal to plain and over two launches {same}; group "
+                f"{plan.group}, V {plan.vec}, piece {plan.piece}, {plan.blocks} blocks, "
+                f"{cuda_build.launches['window_sum']} launches")
+            require(same and cuda_build.launches["window_sum"] == (2 if o.shape[0] else 0),
+                    f"window_sum on {name} differs from its plain version or between launches")
+            require((plan.group == 1) == ("directly" in name), f"{name}: group {plan.group}")
+
+        # where K6's time goes at the sweep's smallest and largest windows
+        for r in (k6_rows[0], k6_rows[-1]):
+            img, o, sy, sx = r["args"]
+            trace = profile_roi.kernel_trace(lambda: ws.window_sum(img, o, sy, sx), 5, "cuda")
+            log(f"  window_sum {sy}x{sx} kernels per call:")
+            profile_roi.print_trace(trace)
         kernels.append({
             "name": "window_sum", "route": "cuda",
             "source": "feature_intertwiner_tpu_torch/csrc/window_sum.cu",
             "replaces": "scripts/profile_window_dma.py:39", "launches": launches,
             "max_abs_err": abs_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None})
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if adds_bound_ms > bound_ms / 2 else "bytes",
+            "library_ms": None})
 
     phase("window_probe", window_probe)
 

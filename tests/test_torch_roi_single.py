@@ -25,6 +25,7 @@ import torch
 import feature_intertwiner_tpu.ops.roi_align as jax_ra
 from feature_intertwiner_tpu_torch.ops import cuda_build
 from feature_intertwiner_tpu_torch.ops import roi_align as ra
+from feature_intertwiner_tpu_torch.ops import window_sum as ws
 from feature_intertwiner_tpu_torch.ops.window_sum import window_sum, window_sum_plain
 from feature_intertwiner_tpu_torch.tools import profile_roi
 
@@ -258,6 +259,236 @@ def test_window_sum_plain_order_and_edges():
             want = want + img[0, 1 + y, 8 + x]
     assert torch.equal(got[0], want)
     assert torch.isnan(got[1]).all() and torch.isnan(got[2]).all()   # y past H, b past B
+
+
+def _window_kernel_model(img, origins, sy, sx, plan):
+    """csrc/window_sum.cu in torch. A group of one: each window's warp adds
+    its pixels row by row from the map. A larger group: the windows sorted
+    by ``b * H + y0`` (leavers last), then per (group, chunk) block the union
+    of its windows' row ranges and its x range, the staged pieces (two
+    buffers, the next piece loaded while one is summed), and each
+    thread's (window, V channels) items adding the pixels of their window in
+    each piece, in the kernel's order. Returns the sums and how often each
+    (window, V channels) was written."""
+    b, h, w, c = img.shape
+    n, g, piece, vec = origins.shape[0], plan.group, plan.piece, plan.vec
+    chunk, lanes = plan.chunk, ws.WINDOW_LANES
+    assert chunk == lanes * vec and c % vec == 0
+    o = origins.long()
+    bi, y0, x0 = o[:, 0], o[:, 1], 8 * o[:, 2]
+    inside = (bi >= 0) & (bi < b) & (y0 >= 0) & (y0 + sy <= h) & (x0 >= 0) & (x0 + sx <= w)
+    rows = img.reshape(b * h, w, c)
+    out = torch.full((n, c), float("nan"))
+    written = torch.zeros((n, c // vec), dtype=torch.int64)
+    lane_ch = vec * torch.arange(lanes)[:, None] + torch.arange(vec)      # [lanes, vec]
+    if g == 1:                                                            # read directly
+        per_block = ws.WINDOW_THREADS // lanes
+        assert plan.blocks == -(-n // per_block) * -(-c // chunk) and plan.shared == 0
+        for j in range(n):
+            for c0 in range(0, c, chunk):
+                live = c0 + lane_ch[:, 0] < c
+                acc = torch.zeros((lanes, vec))
+                if inside[j]:
+                    for y in range(sy):
+                        for x in range(sx):
+                            px = rows[bi[j] * h + y0[j] + y, x0[j] + x]
+                            acc = acc + px[(c0 + lane_ch).clamp(max=c - 1)].float()
+                else:
+                    acc[:] = float("nan")
+                ch = c0 + lane_ch[live]
+                out[j, ch] = acc[live]
+                written[j, ch[:, 0] // vec] += 1
+        return out, written
+    assert plan.shared == ws.window_shared_bytes(g, chunk, piece, img.element_size())
+    key = torch.where(inside, bi * h + y0, torch.full_like(bi, b * h))
+    order = torch.argsort(key, stable=True)
+    assert 1 < g <= ws.WINDOW_GROUP
+    i = torch.arange(ws.WINDOW_GROUP * lanes)              # item k * kThreads + thread
+    j, p = i // lanes, i % lanes
+    assert plan.blocks == -(-n // g) * -(-c // chunk)
+    for g0 in range(0, n, g):
+        win = order[g0:g0 + g]
+        count = win.shape[0]
+        start = torch.where(inside[win], key[win], torch.full_like(win, 2 ** 31 - 1))
+        wx = torch.where(inside[win], x0[win], torch.zeros_like(win))
+        segs = []                                           # thread 0's union of row ranges
+        for s in start.tolist():
+            if s == 2 ** 31 - 1:
+                continue
+            if segs and s <= segs[-1][1]:
+                segs[-1][1] = max(segs[-1][1], s + sy)
+            else:
+                segs.append([s, s + sy])
+        valid = start != 2 ** 31 - 1
+        xlo = int(wx[valid].min()) if segs else 0
+        xhi = int(wx[valid].max()) + sx if segs else 0
+        units = [(r, xa) for lo, hi in segs for r in range(lo, hi) for xa in range(xlo, xhi, piece)]
+        for c0 in range(0, c, chunk):
+            cc = min(chunk, c - c0)
+            live = (j < count) & (vec * p < cc)
+            jj, pp = torch.where(live, j, 0), torch.where(live, p, 0)
+            acc = torch.zeros((i.shape[0], vec))
+            ring = [None] * 2
+
+            def issue(u):
+                if u < len(units):
+                    r, xa = units[u]
+                    ring[u % 2] = (u, rows[r, xa:min(xa + piece, xhi), c0:c0 + cc].clone())
+
+            issue(0)
+            for u, (r, xa) in enumerate(units):
+                issue(u + 1)                                # into piece u - 1's buffer
+                tag, buf = ring[u % 2]
+                assert tag == u and buf.shape[0] <= piece
+                s = start[jj]
+                cover = live & (r >= s) & (r < s + sy)
+                a = torch.maximum(wx[jj], torch.tensor(xa))
+                e = torch.minimum(wx[jj] + sx, torch.tensor(xa + buf.shape[0]))
+                for dx in range(buf.shape[0]):
+                    m = cover & (a + dx < e)
+                    at = torch.where(m, a + dx - xa, 0)
+                    lane = buf[at[:, None], (vec * pp)[:, None] + torch.arange(vec)].float()
+                    acc[m] = acc[m] + lane[m]
+            n_of = win[jj[live]]
+            ch = c0 + vec * p[live]
+            val = torch.where(inside[n_of][:, None], acc[live], torch.tensor(float("nan")))
+            out[n_of[:, None], ch[:, None] + torch.arange(vec)] = val
+            written[n_of, ch // vec] += 1
+    return out, written
+
+
+def _window_case(name):
+    """(map, origins, sy, sx, plan) of one hard case of the window kernel."""
+    rng = np.random.RandomState(17)
+    dtype = torch.float32 if name.startswith("fp32") else torch.bfloat16
+    item = 4 if dtype == torch.float32 else 2
+    b, h, w, c, sy, sx = 2, 10, 32, 8, 3, 5
+    if name.endswith("straddle"):       # one group over both images, touching and with a gap
+        org = [[1, 5, 1], [0, 6, 1], [1, 0, 2], [0, 0, 2], [1, 1, 0], [0, 7, 0]]
+        group = 4
+    elif name.endswith("leavers"):      # six out of the map (b, y, x, each side) among valid ones
+        org = [[0, 1, 0], [-1, 0, 0], [0, 8, 0], [1, 2, 3], [2, 0, 0], [0, -1, 1], [1, 0, 4],
+               [0, 3, -1], [1, 4, 1]]
+        group = 4
+    elif name.endswith("repeats"):
+        org = [[1, 2, 1]] * 5 + [[0, 2, 1], [1, 2, 1]]
+        group = 4
+    elif name.endswith("sx12"):         # pieces of 8 pixels; runs of 8 loads and fewer
+        sx, sy = 12, 4
+        org = rng.randint(0, [b, h - sy + 1, (w - sx) // 8 + 1], (11, 3)).tolist()
+        group = 8
+    elif name.endswith("c66"):          # V = 2 and a ragged last chunk of 2 channels
+        c = 66
+        org = rng.randint(0, [b, h - sy + 1, (w - sx) // 8 + 1], (9, 3)).tolist()
+        group = 4
+    else:                               # the plan's own: read directly, 66 channels for V = 2
+        sy, sx = 2, 3
+        c = 66 if name.endswith("66") else 8
+        org = rng.randint(0, [b, h - sy + 1, (w - sx) // 8 + 1], (5, 3)).tolist()
+        org[1] = [0, h - 1, 0]                              # leaves the map
+        origins = T(np.array(org, np.int32))
+        img = T(rng.randn(b, h, w, c).astype(np.float32)).to(dtype)
+        return img, origins, sy, sx, ws.window_plan(len(org), sy, sx, c, dtype, w)
+    n = len(org)
+    piece = 8 if name.endswith("sx12") else 16
+    vec = 4 if c % 4 == 0 else 2
+    plan = ws.WindowPlan(group, piece, vec, 32 * vec, -(-n // group) * -(-c // (32 * vec)),
+                         ws.window_shared_bytes(group, 32 * vec, piece, item))
+    origins = T(np.array(org, np.int32).reshape(n, 3))
+    img = T(rng.randn(b, h, w, c).astype(np.float32)).to(dtype)
+    return img, origins, sy, sx, plan
+
+
+@pytest.mark.parametrize("name", ["bf16-straddle", "fp32-straddle", "bf16-leavers", "bf16-repeats",
+                                  "bf16-sx12", "fp32-sx12", "bf16-c66", "fp32-c66", "bf16-direct",
+                                  "fp32-direct", "bf16-direct66"])
+def test_window_kernel_model_matches_plain(name):
+    """The window kernel walked block by block (:func:`_window_kernel_model`)
+    equals the plain version bit for bit, NaN included, and writes every
+    (window, pair) once: a group over two images (touching rows and a gap),
+    windows that leave the map among valid ones, repeated origins, sx 5 and
+    12 over several pieces, C = 66 (V = 2, a ragged last chunk), N not a
+    multiple of the group, float32 and bfloat16, and the plan's groups of
+    one, read directly."""
+    img, origins, sy, sx, plan = _window_case(name)
+    n = origins.shape[0]
+    assert n % plan.group or plan.group == 1
+    assert (plan.group == 1) == ("direct" in name)
+    got, written = _window_kernel_model(img, origins, sy, sx, plan)
+    want = window_sum_plain(img, origins, sy, sx)
+    assert bool((written == 1).all())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if name.endswith("leavers"):
+        assert int(torch.isnan(got[:, 0]).sum()) == 6
+    if name.endswith("straddle"):     # the first group holds windows of both images
+        key = origins[:, 0] * img.shape[1] + origins[:, 1]
+        assert set(origins[torch.argsort(key, stable=True)[:4], 0].tolist()) == {0, 1}
+
+
+def test_window_kernel_model_no_windows():
+    img = torch.zeros((1, 4, 8, 4), dtype=torch.bfloat16)
+    origins = torch.zeros((0, 3), dtype=torch.int32)
+    for sy in (2, 16):                  # read directly; staged
+        plan = ws.window_plan(0, sy, sy, 4, img.dtype, 8)
+        got, written = _window_kernel_model(img, origins, sy, sy, plan)
+        assert plan.blocks == 0 and got.shape == (0, 4) and written.numel() == 0
+    assert window_sum(img, origins, 2, 2).shape == (0, 4)
+
+
+@pytest.mark.parametrize("channels", [2, 66, 256, 2048])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_window_plan_fits_and_covers(channels, dtype):
+    """The plan's shared memory fits the card, its chunks cover C, its
+    blocks cover N, and its threads hold at most the kernel's items, for
+    windows 1x1 to 64x64 and maps 16 to 4,096 pixels wide; the constants
+    are those of csrc/window_sum.cu."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for sy, sx in [(1, 1), (1, 64), (64, 1), (5, 12), (8, 8), (8, 16), (16, 16), (16, 32),
+                   (32, 32), (32, 64), (64, 64)]:
+        for w in (16, 256, 4096):
+            for n in (1, 63, 4096, 100_000):
+                for vec in (2, 4):
+                    plan = ws.window_plan(n, sy, sx, channels, dtype, w, vec)
+                    staged = sy * sx >= ws.WINDOW_GROUP_AREA
+                    assert plan.vec == (vec if channels % 4 == 0 and staged else 2)
+                    assert (plan.group > 1) == staged
+                    assert plan.chunk == ws.WINDOW_LANES * plan.vec
+                    chunks = -(-channels // plan.chunk)
+                    assert chunks * plan.chunk >= channels > (chunks - 1) * plan.chunk
+                    assert chunks <= 65535
+                    per_block = plan.group if plan.group > 1 else ws.WINDOW_THREADS // 32
+                    assert plan.blocks == -(-n // per_block) * chunks
+                    assert plan.blocks * per_block >= n * chunks
+                    assert plan.group in (1, ws.WINDOW_GROUP)
+                    if plan.group == 1:
+                        assert plan.shared == 0 and sy * sx < ws.WINDOW_GROUP_AREA
+                        continue
+                    assert plan.shared <= ws.WINDOW_SHARED_BYTES
+                    assert plan.shared == window_shared(plan, item)
+                    assert 1 <= plan.piece <= w
+    source = (cuda_build.CSRC_DIR / "window_sum.cu").read_text()
+    assert f"kThreads = {ws.WINDOW_THREADS};" in source
+    assert f"kLanes = {ws.WINDOW_LANES};" in source
+    assert f"kGroup = {ws.WINDOW_GROUP};" in source
+    assert f"kSharedLimit = {ws.WINDOW_SHARED_BYTES};" in source
+    assert f"kMetaInts = {ws.WINDOW_META_INTS};" in source
+    assert "window_shared_bytes counts the same" in source
+
+
+def window_shared(plan, item):
+    return ws.window_shared_bytes(plan.group, plan.chunk, plan.piece, item)
+
+
+@pytest.mark.parametrize("offset, channels, vec", [
+    (0, 256, 4), (4, 8, 4),            # 4-channel aligned
+    (0, 6, 2), (0, 66, 2),             # C not a multiple of 4
+    (2, 256, 2), (6, 8, 2)])           # views 2 and 6 channels off a 4-channel boundary
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_window_vec(offset, channels, vec, dtype):
+    n = 2 * 3 * channels
+    img = torch.zeros(n + offset, dtype=dtype)[offset:].view(1, 2, 3, channels)
+    assert img.is_contiguous() and img.data_ptr() % (2 * img.element_size()) == 0
+    assert ws.window_vec(img) == vec
 
 
 def test_wrappers_run_plain_on_the_cpu_and_check_their_arguments():
