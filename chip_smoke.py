@@ -97,10 +97,36 @@ Phases, each of which must pass:
    second and the device time of one batch's ``detect()``; then a small
    model evaluates on the card and on the CPU (fed the card's proposals):
    the same detections (boxes within 1 px, scores within 1e-4) and stats
-   within 0.02.
+   within 0.02;
+12. bf16_main_path: the flagship in bfloat16 (float32 parameters, as the
+   JAX ``main.py`` builds it under the default ``TPU.COMPUTE_DTYPE``) runs
+   ``detect()``, counted from 0: K1 twice, K2 at least twice; outputs
+   checked as in 3; each K1 call on bfloat16 maps bit-equal to its plain
+   version and over two launches, timed beside the float32 kernel on the
+   widened maps and the widening and rounding copies; ``detect()`` and
+   ``forward_inference`` paired with float32 in turns; both forwards' device
+   time by family, and the bfloat16 forward's costliest aten ops;
+13. bf16_train_path: one 'all' stage of 2 steps in bfloat16 through
+   ``train_model``: per step K1 5, K3 2, K2 at least 1 launches; finite
+   losses, positives and a meta loss; parameters, BN statistics,
+   momentum, buffer and checkpoint float32; K1 bit-equal and K3 within one
+   bfloat16 rounding of their plain versions on the steps' tensors, with
+   their copies' time; the 'all' step paired with float32 in turns; both
+   steps' device time by family and their costliest aten ops;
+14. bf16_eval_path: ``test_model`` in bfloat16 over 16 images under
+   cProfile (K1 2 and K2 at least 2 launches per batch): the host's share
+   outside ``detect()`` and the host functions that take it; ``detect()``
+   of a batch of 8 paired with float32; both breakdowns;
+15. bf16_reference: a small model in bfloat16 on the card against the CPU
+   (pyramid, class probabilities and box deltas on the same proposals; one
+   train step's losses, buffer and parameter updates), held to the CPU's
+   own bfloat16 error (the CPU in bfloat16 against the CPU in float32).
+``roi_single`` also runs the ``crop`` sweep on a bfloat16 map (K4 and K5
+bit-equal to their plain versions), and ``window_probe`` K6 on C = 3 and
+on a map one channel off a pair (one channel a lane).
 
-Float32 throughout: TF32 is switched off for cuDNN convolutions and for
-matmuls. The last three lines are a JSON object with one entry per kernel,
+Phases 1-11 run float32: TF32 is switched off for cuDNN convolutions and
+for matmuls. The last three lines are a JSON object with one entry per kernel,
 the card's name and power limit from ``nvidia-smi``, and
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 them.
@@ -205,9 +231,10 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def seeded_model(build_model, cfg, seed, device=None):
-    """The port's seeded random weights (Xavier-uniform convs, N(0, 0.01)
-    dense, BN at identity), tempered so that the proposals fall on the
+def seeded_model(build_model, cfg, seed, device=None, dtype=None):
+    """The port's seeded random weights (Xavier-uniform convs, Xavier-normal
+    transposed convs, N(0, 0.01) dense, BN at identity) in a model computing
+    in ``dtype`` (default float32), tempered so that the proposals fall on the
     images as a trained model's do: the last BN scale of every bottleneck is
     0.1 (with BN at identity nothing normalises the residual stack), and the
     RPN's class and box convs are scaled by 0.1. Untempered, the saturated
@@ -217,7 +244,7 @@ def seeded_model(build_model, cfg, seed, device=None):
     import torch
     from feature_intertwiner_tpu_torch.models.resnet import Bottleneck
 
-    model = build_model(cfg, device=device, seed=seed)
+    model = build_model(cfg, device=device, seed=seed, dtype=dtype or torch.float32)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, Bottleneck):
@@ -347,7 +374,7 @@ def profile_by_family(torch, fn, reps, families):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    kernels_us = {}
+    kernels_us, kernels_n = {}, {}
     for e in prof.key_averages():
         # device kernels only: the aten ops above them, and their ranges
         # on the device's timeline, carry the same time again
@@ -357,25 +384,46 @@ def profile_by_family(torch, fn, reps, families):
         us = e.self_device_time_total
         if us > 0:
             kernels_us[e.key] = kernels_us.get(e.key, 0) + us
+            kernels_n[e.key] = kernels_n.get(e.key, 0) + e.count
     total_ms = sum(kernels_us.values()) / 1e3 / reps
-    by_family = {}
+    by_family, launches = {}, {}
     for name, us in kernels_us.items():
         low = name.lower()
         fam = next((f for f, keys in families.items() if any(k in low for k in keys)), "other")
         by_family[fam] = by_family.get(fam, 0) + us / 1e3 / reps
+        launches[fam] = launches.get(fam, 0) + kernels_n[name] / reps
     top = [(name, us / 1e3 / reps) for name, us in
            sorted(kernels_us.items(), key=lambda kv: -kv[1])[:12]]
-    return wall_ms, total_ms, by_family, top
+    return wall_ms, total_ms, by_family, top, launches
 
 
-def log_breakdown(label, wall_ms, total_ms, by_family, top):
+def top_ops(torch, fn, count=8):
+    """The aten ops of one call of ``fn`` that launch the most device time
+    themselves (torch.profiler, grouped by input shapes): [(ms, launches,
+    op, input shapes)], largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key, e.input_shapes)
+            for e in prof.key_averages(group_by_input_shape=True)
+            if e.key.startswith("aten::") and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[0])[:count]
+
+
+def log_breakdown(label, wall_ms, total_ms, by_family, top, launches):
     if total_ms == 0:
         log(f"{label} not measured: the profiler saw no device time")
         return
     log(f"{label} wall {wall_ms:.2f} ms under the profiler, device busy "
         f"{total_ms:.2f} ms ({100 * total_ms / wall_ms:.1f}%)")
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        log(f"  {fam:26s} {ms:8.3f} ms  {100 * ms / total_ms:5.1f}%")
+        log(f"  {fam:26s} {ms:8.3f} ms  {100 * ms / total_ms:5.1f}%  "
+            f"{launches[fam]:g} launches")
     for name, ms in top:
         log(f"    {ms:8.3f} ms  {name[:90]}")
 
@@ -703,7 +751,10 @@ def main() -> int:
         failures.append("kernels (main path failed)")
 
     # 5. where the forward's device time goes -----------------------------------
-    families = {"convolution": ("conv", "gemm", "xmma", "cudnn", "sm90_", "sm80_", "winograd"),
+    # first match wins: cuDNN's layout transposes before the convolutions
+    families = {"layout transposes": ("nchwtonhwc", "nhwctonchw"),
+                "convolution": ("conv", "gemm", "xmma", "cudnn", "sm90_", "sm80_", "winograd",
+                                "wgrad", "dgrad"),
                 "roi_align_fwd (K1)": ("roi_align_fwd",),
                 "roi_align_bwd (K3)": ("roi_align_bwd",),
                 "nms (K2)": ("nms_mask", "nms_sweep"),
@@ -1070,7 +1121,8 @@ def main() -> int:
         image over P2-P5 of 1024², 7² and 14²), then K3 held by
         :func:`hold_bwd` on the very tensors it timed, and under K1 through
         autograd against the plain backward and bit-equal over two runs."""
-        rows = profile_roi.bwd(batch=8, boxes=200, size=1024, reps=5, device="cuda")
+        rows = profile_roi.bwd(batch=8, boxes=200, size=1024, reps=5, device="cuda",
+                               dtype="float32")
         log("BWD_SWEEP B=8, 200 boxes per image, P2-P5 of 1024², 256 channels:")
         for r in rows:
             log(f"  {r['route']:64s} {r['dtype']:8s} {r['ms']:.4f} ms")
@@ -1239,9 +1291,11 @@ def main() -> int:
         import torch.nn.functional as F
 
         cuda_build.launches.clear()
-        crop_rows = profile_roi.crop(batch=8, boxes=1024, size=256, reps=5, device="cuda")
+        crop_rows = profile_roi.crop(batch=8, boxes=1024, size=256, reps=5, device="cuda",
+                                     dtype="float32")
         with Recorder(roi_ops, "roi_align_fwd") as stage_k1:
-            stage_rows = profile_roi.stage(batch=8, boxes=1000, size=1024, reps=5, device="cuda")
+            stage_rows = profile_roi.stage(batch=8, boxes=1000, size=1024, reps=5, device="cuda",
+                                           dtype="float32")
         launches = {k: cuda_build.launches[k]
                     for k in ("crop_and_resize_grouped", "crop_and_resize_grouped_mm")}
         log("ROI_SINGLE LAUNCHES " + json.dumps(launches))
@@ -1461,6 +1515,25 @@ def main() -> int:
         require(same and chunk_launches == 2, "the chunked backward differs from its halves")
         fold_err("roi_align_bwd", g_err * top)
 
+        # the bfloat16 entry of K4 and K5: the crop sweep on a bfloat16 map
+        # (widened once per call, the float32 kernel, the crops rounded once),
+        # each route bit-equal to its plain version and over two launches on
+        # the tensors it timed, beside the widening copy and the rounding
+        crop16 = profile_roi.crop(batch=8, boxes=1024, size=256, reps=5, device="cuda",
+                                  dtype="bfloat16")
+        route16 = {r["route"].split(" ")[0]: r for r in crop16}
+        image16, boxes16, _ = route16["crop_and_resize_grouped"]["args"]
+        out32 = roi_ops.crop_and_resize_grouped(image16.float(), boxes16, crop)
+        copy_ms = cuda_ms(torch, lambda: (image16.float(), out32.bfloat16()), 5)
+        for name in plains:
+            r = route16[name]
+            err = held(r)
+            require(err == 0.0, f"{name} on bfloat16 differs from its plain version by {err}")
+            log(f"  {name} bfloat16 entry (crop sweep): err {err:.3g}, {r['ms']:.4f} ms against "
+                f"{route[name]['ms']:.4f} ms in float32; the widening and rounding copies "
+                f"{copy_ms:.4f} ms per call; grid_sample bfloat16 "
+                f"{route16['F.grid_sample']['ms']:.4f} ms")
+
         # where K4's and K5's time goes: their launches at the crop shapes, K5's
         # at the stage shapes
         for r in (route["crop_and_resize_grouped"], route["crop_and_resize_grouped_mm"],
@@ -1545,7 +1618,18 @@ def main() -> int:
         off = torch.zeros(m.numel() + 2, dtype=torch.bfloat16, device="cuda")[2:].view(m.shape)
         off.copy_(m)                                         # 4 bytes off an 8-byte boundary
         none = np.zeros((0, 3), np.int32)
-        cases = [("bf16, out of the map, repeated, over two images", m, mixed, 48, 12),
+        m3 = dev(g.randn(2, 64, 96, 3).astype(np.float32)).bfloat16()          # RGB
+        odd = torch.zeros(m66.numel() + 1, dtype=torch.bfloat16, device="cuda")[1:]
+        odd = odd.view(m66.shape)
+        odd.copy_(m66)                                       # one channel off a pair
+        cases = [("bf16, C = 3, read directly", m3, origins_for(200, 2, 64, 96, 8, 8), 8, 8),
+                 ("bf16, C = 3, 24x24 read directly", m3, origins_for(200, 2, 64, 96, 24, 24),
+                  24, 24),
+                 ("fp32, C = 3, 24x24 read directly", m3.float(),
+                  origins_for(200, 2, 64, 96, 24, 24), 24, 24),
+                 ("bf16, a map one channel off a pair, 16x32 read directly", odd,
+                  origins_for(130, 2, 40, 64, 16, 32), 16, 32),
+                 ("bf16, out of the map, repeated, over two images", m, mixed, 48, 12),
                  ("bf16, the same origins, read directly", m, mixed, 4, 4),
                  ("bf16, sx 5", m, thin, 112, 5), ("bf16, sx 5, read directly", m, thin, 8, 5),
                  ("bf16, sx 12, read directly", m, mixed, 8, 12),
@@ -1718,6 +1802,466 @@ def main() -> int:
                 "the card's evaluation differs from the CPU's")
 
     phase("eval_path", eval_path)
+
+    # 12-15. bfloat16, as the JAX main.py runs the flagship ---------------------------
+
+    def paired(fns, reps):
+        """Medians of ``reps`` calls of each of two callables in turns: a,
+        b, b, a (each call ends on a synchronised device)."""
+        times = {k: [] for k in fns}
+        order = list(fns) + list(fns)[::-1]
+        for _ in range(reps):
+            for k in order:
+                t0 = time.perf_counter()
+                fns[k]()
+                torch.cuda.synchronize()
+                times[k].append((time.perf_counter() - t0) * 1e3)
+        return {k: sorted(v)[len(v) // 2] for k, v in times.items()}, times
+
+    def widen_ms(feats, out):
+        """The bfloat16 entry's copies of one K1 call: each level widened to
+        float32 and the float32 crops rounded to bfloat16."""
+        wide = roi_ops.roi_align_fwd([f.float() for f in feats], *out)
+        return cuda_ms(torch, lambda: ([f.float() for f in feats], wide.bfloat16()), 10)
+
+    def hold_k1_bf16(calls, label):
+        """Each recorded K1 call on bfloat16 maps, bit-equal to its plain
+        version (the float32 plain version on the widened maps, rounded) and
+        over two launches; its time beside the float32 kernel on the widened
+        maps and the copies. Returns (error, ms, float32 ms, copies ms)."""
+        err, ms, ms32, copies = 0.0, 0.0, 0.0, 0.0
+        for args, kwargs in calls:
+            feats, rest = args[0], args[1:]
+            require(all(f.dtype == torch.bfloat16 for f in feats), f"{label}: K1 maps not bf16")
+            got = roi_ops.roi_align_fwd(feats, *rest, **kwargs)
+            again = roi_ops.roi_align_fwd(feats, *rest, **kwargs)
+            want = roi_ops.multilevel_gather_plain(feats, *rest, **kwargs)
+            torch.cuda.synchronize()
+            require(got.dtype == torch.bfloat16 and torch.equal(got, want)
+                    and torch.equal(got, again),
+                    f"{label}: K1 on bfloat16 maps differs from its plain version or itself")
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            wide = [f.float() for f in feats]
+            k_ms = cuda_ms(torch, lambda: roi_ops.roi_align_fwd(feats, *rest, **kwargs), 10)
+            k32 = cuda_ms(torch, lambda: roi_ops.roi_align_fwd(wide, *rest, **kwargs), 10)
+            c_ms = widen_ms(feats, rest)
+            ms, ms32, copies = ms + k_ms, ms32 + k32, copies + c_ms
+            log(f"  {label} roi_align_fwd bf16 n={rest[0].shape[0]} crop={tuple(rest[3])}: "
+                f"bit-equal to plain, {k_ms:.4f} ms; the float32 kernel on the widened maps "
+                f"{k32:.4f} ms; widening P2-P5 and rounding the crops {c_ms:.4f} ms")
+        return err, ms, ms32, copies
+
+    def bf16_main_path():
+        """The flagship's ``detect()`` in bfloat16 (float32 parameters),
+        counted from 0: K1 twice and K2 at least twice; the outputs' shapes,
+        finiteness and ranges; each K1 call bit-equal to its plain version;
+        ``detect()`` and ``forward_inference`` per batch of 2 paired with
+        float32 in turns; the bfloat16 forward's device time by family."""
+        m16 = seeded_model(build_model, cfg, seed=0, dtype=torch.bfloat16)
+        m32 = seeded_model(build_model, cfg, seed=0)
+        for m in (m16, m32):
+            detect(m, images, cfg)                      # warm-up
+        torch.cuda.synchronize()
+        cuda_build.launches.clear()
+        with Recorder(roi_ops, "roi_align_fwd") as roi_rec, \
+                Recorder(nms_ops, "nms_alive") as nms_rec:
+            results = detect(m16, images, cfg)
+        launches = {k: cuda_build.launches[k] for k in ("roi_align_fwd", "nms_alive")}
+        log("BF16 LAUNCHES " + json.dumps(launches))
+        require(launches["roi_align_fwd"] == 2 and launches["nms_alive"] >= 2,
+                f"bf16 main path launches {launches}")
+        require(all(p.dtype == torch.float32 for p in m16.parameters()), "a bf16 parameter")
+        molded, windows = mold_inputs(images, cfg, "cuda")
+        with torch.inference_mode():
+            pyramid, probs, _, proposals = m16.first_stage(molded)
+            out = m16.second_stage(pyramid[:4], proposals, windows)
+        det, masks = out["detections"], out["masks"]
+        require(pyramid[0].dtype == torch.bfloat16 and probs.dtype == torch.float32
+                and det.dtype == torch.float32, "bf16 main path dtypes")
+        require(det.shape == (2, 100, 6) and masks.shape == (2, 100, 28, 28),
+                f"bf16 output shapes {tuple(det.shape)}, {tuple(masks.shape)}")
+        require(bool(torch.isfinite(det).all() and torch.isfinite(masks).all()),
+                "non-finite bf16 detections or masks")
+        require(bool(((masks >= 0) & (masks <= 1)).all()), "bf16 mask values outside [0, 1]")
+        n_det = [int((det[i, :, 5] > 0).sum()) for i in range(2)]
+        require(min(n_det) > 0, f"no bf16 detections {n_det}")
+        log(f"BF16 MAIN detections per image {n_det}; "
+            f"{sum(len(r['class_ids']) for r in results)} after unmolding")
+        with torch.inference_mode():
+            err, ms, ms32, copies = hold_k1_bf16(roi_rec.calls, "BF16 MAIN")
+            mism = 0
+            for args, kwargs in nms_rec.calls:
+                mism += int((nms_ops.nms_alive(*args, **kwargs)
+                             != nms_ops.greedy_alive_sorted_plain(*args, **kwargs)).sum())
+        require(mism == 0, "K2 differs from its plain version on the bf16 path")
+        fold_err("roi_align_fwd", err)
+        log(f"BF16 MAIN per forward: K1 {ms:.4f} ms (float32 kernel {ms32:.4f}, copies "
+            f"{copies:.4f})")
+        del roi_rec, nms_rec
+        with torch.inference_mode():
+            e2e, runs = paired({"float32": lambda: detect(m32, images, cfg),
+                                "bfloat16": lambda: detect(m16, images, cfg)}, 3)
+            fwd = {k: cuda_ms(torch, lambda m=m: m.forward_inference(molded, windows), 5)
+                   for k, m in (("float32", m32), ("bfloat16", m16), ("bfloat16 again", m16),
+                                ("float32 again", m32))}
+        log(f"BF16 E2E detect() ms per batch of 2, medians of 6 in turns: bfloat16 "
+            f"{e2e['bfloat16']:.2f} (runs {', '.join(f'{x:.2f}' for x in runs['bfloat16'])}), "
+            f"float32 {e2e['float32']:.2f} (runs "
+            f"{', '.join(f'{x:.2f}' for x in runs['float32'])})")
+        log("BF16 forward_inference ms (CUDA events, 5 calls): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in fwd.items()))
+        with torch.inference_mode():
+            for label, m in (("float32", m32), ("bfloat16", m16)):
+                out = profile_by_family(torch, lambda m=m: m.forward_inference(molded, windows),
+                                        3, families)
+                log_breakdown(f"BF16 BREAKDOWN forward {label}", *out)
+            log("BF16 the aten ops of a bfloat16 forward with the most device time:")
+            for ms_, n_, op, shapes in top_ops(
+                    torch, lambda: m16.forward_inference(molded, windows)):
+                log(f"    {ms_:9.3f} ms  {n_:4d} calls  {op}  {str(shapes)[:110]}")
+
+    def bf16_train_path():
+        """The flagship trained in bfloat16 through Trainer/train_model: the
+        'all' stage, one epoch of 2 steps at batch 4 over 8 synthetic 1024²
+        images, counted from 0: per step K1 5 times, K3 twice, K2 at least
+        once; finite losses, a step with positives and a meta loss; float32
+        parameters, momentum, buffer and checkpoint. Each K1 call bit-equal
+        to its plain version, each K3 call within one bfloat16 rounding of
+        its plain version (the float32 sums, each rounded once) and over two
+        launches; K3's widening and rounding copies per call. Then the 'all'
+        step in bfloat16 and float32 in turns (medians of 6), and one
+        bfloat16 step's device time by family."""
+        import shutil
+        import tempfile
+
+        from feature_intertwiner_tpu_torch.data import synthetic
+        from feature_intertwiner_tpu_torch.data.loader import DetectionDataset, Loader
+        from feature_intertwiner_tpu_torch.train import workflow
+
+        tcfg = build_config("meta_105_quick_1", "train", opts=list(FLAGSHIP_OVERRIDES) + [
+            "TRAIN.DO_VALIDATION", "False", "TRAIN.SCHEDULE", "[0, 0, 1]",
+            "TRAIN.KEEP_CHECKPOINTS", "1", "CTRL.SHOW_INTERVAL", "1"])
+        folder = tempfile.mkdtemp(prefix="chip_smoke_train16_", dir=os.path.join(ROOT, "build"))
+        tcfg.MISC.RESULT_FOLDER = folder
+        tcfg.MISC.LOG_FILE = os.path.join(folder, "log.txt")
+        data = synthetic.generate(num_images=8, **TRAIN_DATA)
+        loader = Loader(DetectionDataset(data, tcfg, augment=True, seed=tcfg.MISC.SEED),
+                        batch_size=tcfg.TRAIN.BATCH_SIZE, shuffle=True, seed=tcfg.MISC.SEED)
+        model = temper_fpn(seeded_model(build_model, tcfg, seed=0, dtype=torch.bfloat16))
+        trainer = workflow.Trainer(model, tcfg).resume()
+        steps = []
+        step_fn = workflow.train_step
+
+        def recorded_step(st, cfg_, batch, lr, meta_gate, generator=None, draws=None):
+            counts0 = dict(cuda_build.launches)
+            metrics = step_fn(st, cfg_, batch, lr, meta_gate, generator, draws)
+            torch.cuda.synchronize()
+            steps.append(dict({k: float(v) for k, v in metrics.items()}, launches={
+                k: cuda_build.launches[k] - counts0.get(k, 0)
+                for k in ("roi_align_fwd", "roi_align_bwd", "nms_alive")}))
+            return metrics
+
+        workflow.train_step = recorded_step
+        try:
+            with Recorder(roi_ops, "roi_align_bwd") as bwd_rec, \
+                    Recorder(roi_ops, "roi_align_fwd") as fwd_rec:
+                cuda_build.launches.clear()
+                workflow.train_model(trainer, loader, "all")
+                launches = {k: cuda_build.launches[k]
+                            for k in ("roi_align_fwd", "roi_align_bwd", "nms_alive")}
+        finally:
+            workflow.train_step = step_fn
+        log("BF16 TRAIN LAUNCHES " + json.dumps(launches))
+        for i, s in enumerate(steps):
+            log(f"BF16 TRAIN step {i + 1} ['all'] "
+                + " ".join(f"{k.replace('_loss', '')} {s[k]:.4f}" for k in (
+                    "total_loss", "rpn_class_loss", "rpn_bbox_loss", "mrcnn_class_loss",
+                    "mrcnn_bbox_loss", "mrcnn_mask_loss", "meta_loss"))
+                + f" | positives {s['positive_rois']:.0f} | launches {s['launches']}")
+        require(len(steps) == 2, f"{len(steps)} bf16 train steps, want 2")
+        for s in steps:
+            require(s["launches"]["roi_align_fwd"] == 5 and s["launches"]["roi_align_bwd"] == 2
+                    and s["launches"]["nms_alive"] >= 1, f"bf16 step launches {s['launches']}")
+            require(all(math.isfinite(s[k]) for k in s if k.endswith("_loss")),
+                    "a non-finite bf16 loss")
+        require(any(s["positive_rois"] > 0 and s["meta_loss"] > 0 for s in steps),
+                "no bf16 step had positive RoIs and a non-zero meta loss")
+        st = trainer.state
+        ck = torch.load(os.path.join(folder, "checkpoints", sorted(os.listdir(
+            os.path.join(folder, "checkpoints")))[-1]), map_location="cpu", weights_only=True)
+        f32_state = (all(v.dtype in (torch.float32, torch.int64)
+                         for v in st.model.state_dict().values())
+                     and all(s_["momentum_buffer"].dtype == torch.float32
+                             for s_ in st.optimizer.state.values())
+                     and st.buffer.dtype == torch.float32
+                     and all(v.dtype in (torch.float32, torch.int64)
+                             for v in ck["model"].values()))
+        log(f"BF16 TRAIN parameters, BN statistics, momentum, buffer and checkpoint float32: "
+            f"{f32_state}")
+        require(f32_state, "bf16 training left a state tensor outside float32")
+        del ck
+
+        # K1 and K3 on the last step's bfloat16 tensors
+        with torch.no_grad():
+            err, ms, ms32, copies = hold_k1_bf16(fwd_rec.calls, "BF16 TRAIN")
+            fold_err("roi_align_fwd", err)
+            k3_rel, k3_abs, k3_ms, k3_ms32, k3_copies = 0.0, 0.0, 0.0, 0.0, 0.0
+            for args, kwargs in bwd_rec.calls:
+                g = args[0]
+                require(g.dtype == torch.bfloat16, "K3's cotangent is not bfloat16")
+                got = roi_ops.roi_align_bwd(*args, **kwargs)
+                again = roi_ops.roi_align_bwd(*args, **kwargs)
+                want = roi_ops.multilevel_gather_bwd_plain(*args, **kwargs)
+                torch.cuda.synchronize()
+                for a, b, c in zip(got, again, want):
+                    require(a.dtype == torch.bfloat16 and torch.equal(a, b),
+                            "two bf16 K3 launches differ")
+                    tol = 2.0 ** -7 * c.float().abs() + 1e-5 * c.float().abs().max()
+                    excess = float(((a.float() - c.float()).abs() - tol).max())
+                    require(excess <= 0, "bf16 K3 beyond one rounding of its plain version")
+                    diff = float((a.float() - c.float()).abs().max())
+                    k3_abs = max(k3_abs, diff)
+                    k3_rel = max(k3_rel, diff / max(float(c.float().abs().max()), 1e-30))
+                g32 = g.float()
+                outs32 = roi_ops.roi_align_bwd(g32, *args[1:], **kwargs)
+                t_ms = cuda_ms(torch, lambda: roi_ops.roi_align_bwd(*args, **kwargs), 10)
+                t32 = cuda_ms(torch, lambda: roi_ops.roi_align_bwd(g32, *args[1:], **kwargs), 10)
+                c_ms = cuda_ms(torch, lambda: (g.float(), [o.bfloat16() for o in outs32]), 10)
+                k3_ms, k3_ms32, k3_copies = k3_ms + t_ms, k3_ms32 + t32, k3_copies + c_ms
+                log(f"  BF16 TRAIN roi_align_bwd bf16 n={g.shape[0]} crop={tuple(g.shape[1:3])}: "
+                    f"{t_ms:.4f} ms; the float32 kernel {t32:.4f} ms; widening g and rounding "
+                    f"P2-P5's gradients {c_ms:.4f} ms")
+            fold_err("roi_align_bwd", k3_abs)
+        n = len(steps)
+        log(f"BF16 TRAIN per step (the mean of {n}): K1 {ms / n:.4f} ms (float32 kernel "
+            f"{ms32 / n:.4f}, copies {copies / n:.4f}); K3 {k3_ms / n:.4f} ms (float32 kernel "
+            f"{k3_ms32 / n:.4f}, copies {k3_copies / n:.4f}); K3 within one rounding, largest "
+            f"difference {k3_rel:.3g} of the largest gradient")
+        del fwd_rec, bwd_rec
+
+        # the 'all' step, bfloat16 and float32 in turns
+        m32 = temper_fpn(seeded_model(build_model, tcfg, seed=0))
+        t32 = workflow.Trainer(m32, tcfg)
+        batch = workflow.to_device(next(iter(loader)), "cuda")
+        gen = torch.Generator(device="cuda")
+        for t in (trainer, t32):
+            workflow.set_trainable(t.model, "all")
+
+        def one(t):
+            gen.manual_seed(0)
+            workflow.train_step(t.state, tcfg, batch, 1e-4, 1.0, gen)
+
+        one(t32)
+        step_ms, runs = paired({"float32": lambda: one(t32), "bfloat16": lambda: one(trainer)}, 3)
+        log(f"BF16 TRAIN step ms ['all'], medians of 6 in turns: bfloat16 "
+            f"{step_ms['bfloat16']:.2f} (runs {', '.join(f'{x:.2f}' for x in runs['bfloat16'])}), "
+            f"float32 {step_ms['float32']:.2f} (runs "
+            f"{', '.join(f'{x:.2f}' for x in runs['float32'])})")
+        for label, t in (("float32", t32), ("bfloat16", trainer)):
+            out = profile_by_family(torch, lambda t=t: one(t), 1, families)
+            log_breakdown(f"BF16 TRAIN BREAKDOWN one 'all' step {label}", *out)
+            log(f"BF16 TRAIN the aten ops of one 'all' step {label} with the most device time:")
+            for ms_, n_, op, shapes in top_ops(torch, lambda t=t: one(t)):
+                log(f"    {ms_:9.3f} ms  {n_:4d} calls  {op}  {str(shapes)[:110]}")
+        shutil.rmtree(folder, ignore_errors=True)
+
+    def bf16_eval_path():
+        """``test_model`` with the flagship in bfloat16 over 16 synthetic
+        images, counted from 0 (K1 twice and K2 at least twice per batch,
+        K1 bit-equal to its plain version), under cProfile: its host share
+        (time outside ``detect()``'s forward) and the host functions that
+        take it. Then ``detect()`` of one batch of 8 in bfloat16 and float32
+        in turns, and the bfloat16 batch's device time by family."""
+        import contextlib
+        import cProfile
+        import io
+        import pstats
+        import shutil
+        import tempfile
+
+        from feature_intertwiner_tpu_torch.data import synthetic
+        from feature_intertwiner_tpu_torch.evaluation import COCO
+        from feature_intertwiner_tpu_torch.train import workflow
+
+        data = synthetic.generate(num_images=16)
+        ecfg = build_config("meta_105_quick_1", "inference", opts=list(FLAGSHIP_OVERRIDES))
+        ecfg.DATASET.NUM_CLASSES = data.num_classes
+        m16 = seeded_model(build_model, ecfg, seed=0, dtype=torch.bfloat16)
+        m32 = seeded_model(build_model, ecfg, seed=0)
+        chunk = [data.load_image(i) for i in range(ecfg.TEST.BATCH_SIZE)]
+        for m in (m16, m32):
+            detect(m, chunk[:2], ecfg)                 # warm-up
+        torch.cuda.synchronize()
+        folder = tempfile.mkdtemp(prefix="chip_smoke_eval16_", dir=os.path.join(ROOT, "build"))
+        ecfg.MISC.RESULT_FOLDER = folder
+        ecfg.MISC.LOG_FILE = os.path.join(folder, "log.txt")
+        api = COCO(dataset=data.coco_dataset())
+        batches = math.ceil(data.num_images / ecfg.TEST.BATCH_SIZE)
+        in_detect = []
+        detect_fn = workflow.detect
+
+        def timed_detect(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = detect_fn(*args, **kwargs)
+            in_detect.append(time.perf_counter() - t0)   # ends on a device-to-host copy
+            return out
+
+        prof = cProfile.Profile()
+        cuda_build.launches.clear()
+        workflow.detect = timed_detect
+        try:
+            with Recorder(roi_ops, "roi_align_fwd") as roi_rec, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                prof.enable()
+                stats = workflow.test_model(m16, ecfg, data, api, epoch=0, eval_masks=True)
+                prof.disable()
+                wall = time.perf_counter() - t0
+        finally:
+            workflow.detect = detect_fn
+        launches = {k: cuda_build.launches[k] for k in ("roi_align_fwd", "nms_alive")}
+        log(f"BF16 EVAL LAUNCHES {json.dumps(launches)} over {batches} batches; test_model "
+            f"{wall:.2f} s, {data.num_images / wall:.2f} images/s; bbox "
+            + " ".join(f"{v:.3f}" for v in stats))
+        require(launches["roi_align_fwd"] == 2 * batches and launches["nms_alive"] >= 2 * batches,
+                f"bf16 eval launches {launches}")
+        with torch.inference_mode():
+            err, _, _, _ = hold_k1_bf16(roi_rec.calls[:2], "BF16 EVAL")
+        fold_err("roi_align_fwd", err)
+        del roi_rec
+        det_s = sum(in_detect)
+        log(f"BF16 EVAL host profile (cProfile over test_model): {wall:.3f} s in all, "
+            f"{det_s:.3f} s inside detect() ({len(in_detect)} calls: molding, forward, copy "
+            f"back, unmolding), {wall - det_s:.3f} s outside it "
+            f"({100 * (wall - det_s) / wall:.1f}%: RLE, results, COCOeval, the cache)")
+        text = io.StringIO()
+        pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(15)
+        for line in text.getvalue().splitlines():
+            if line.strip() and not line.lstrip().startswith(("Ordered", "List reduced")):
+                log("    " + line.rstrip()[:150])
+        shutil.rmtree(folder, ignore_errors=True)
+        with torch.inference_mode():
+            det_ms, runs = paired({"float32": lambda: detect(m32, chunk, ecfg),
+                                   "bfloat16": lambda: detect(m16, chunk, ecfg)}, 2)
+        log(f"BF16 EVAL detect() of a batch of {len(chunk)}, ms, medians of 4 in turns: "
+            f"bfloat16 {det_ms['bfloat16']:.1f} (runs "
+            f"{', '.join(f'{x:.1f}' for x in runs['bfloat16'])}), float32 "
+            f"{det_ms['float32']:.1f} (runs {', '.join(f'{x:.1f}' for x in runs['float32'])})")
+        for label, m in (("float32", m32), ("bfloat16", m16)):
+            out = profile_by_family(torch, lambda m=m: detect(m, chunk, ecfg), 1, families)
+            log_breakdown(f"BF16 EVAL BREAKDOWN detect() of {len(chunk)} {label}", *out)
+
+    def bf16_reference():
+        """A small model in bfloat16 on the card against the CPU from the same
+        weights and inputs, each held to the CPU's own bfloat16 error (the
+        CPU in bfloat16 against the CPU in float32): ``|card_bf16 - cpu_bf16|
+        <= 2 e + 2^-8 m`` with ``e = |cpu_bf16 - cpu_f32|`` and ``m`` the
+        float32 value's magnitude, on the pyramid and the second stage's
+        class probabilities and box deltas fed the same proposals; then one
+        train step (all parameters) from the same weights, batch, draws and
+        proposals: each loss and the buffer likewise, and the parameters'
+        updates in L2 over all parameters within 2 e."""
+        import numpy as np
+        from feature_intertwiner_tpu_torch.train.optim import set_trainable
+        from feature_intertwiner_tpu_torch.train.step import create_train_state, train_step
+
+        small_opts = list(FLAGSHIP_OVERRIDES) + [
+            "MODEL.BACKBONE", "resnet50", "DATASET.NUM_CLASSES", "8",
+            "DATA.IMAGE_MIN_DIM", "96", "DATA.IMAGE_MAX_DIM", "128",
+            "RPN.ANCHOR_SCALES", "(8, 16, 32, 64, 128)", "RPN.PRE_NMS_LIMIT", "200",
+            "RPN.POST_NMS_ROIS_INFERENCE", "48", "TEST.DET_MAX_INSTANCES", "8",
+            "ROIS.TRAIN_ROIS_PER_IMAGE", "24", "ROIS.ASSIGN_ANCHOR_BASE", "56.0"]
+        tsmall = build_config("smoke_small", "train", opts=small_opts)
+        runs = {("cuda", torch.bfloat16): None, ("cpu", torch.bfloat16): None,
+                ("cpu", torch.float32): None}
+        models = {}
+        for dev, dtype in runs:
+            model = seeded_model(build_model, tsmall, seed=3, device=dev, dtype=dtype)
+            biases = torch.Generator().manual_seed(4)
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    if name.endswith("bias"):
+                        p.copy_(torch.randn(p.shape, generator=biases) * 0.005)
+            models[(dev, dtype)] = temper_fpn(model)
+        rng = np.random.RandomState(5)
+        b, gt, size = 2, 5, 128
+        images_np = rng.randn(b, size, size, 3) * 40
+        card = models[("cuda", torch.bfloat16)]
+        with torch.no_grad():
+            x = torch.as_tensor(images_np, dtype=torch.float32)
+            props = card.first_stage(x.cuda())[3].cpu()
+            fwd = {}
+            for (dev, dtype), m in models.items():
+                pyr, _, _, _ = m.first_stage(x.to(dev))
+                maps = m.dev_roi.pooling_maps(pyr[:4])
+                pooled = m.dev_roi.pool(maps, props.to(dev), m.pool_size)
+                _, probs, bbox, _ = m.classifier(pooled)
+                fwd[(dev, dtype)] = [t.float().cpu() for t in (*pyr[:4], probs, bbox)]
+
+        def held(label, got, cpu16, cpu32, scale=None):
+            own = float((cpu16 - cpu32).abs().max())
+            m = float(cpu32.abs().max()) if scale is None else scale
+            diff = float((got - cpu16).abs().max())
+            require(diff <= 2 * own + 2.0 ** -8 * m,
+                    f"{label}: the card's bf16 differs from the CPU's by {diff} "
+                    f"(the CPU's own bf16 error {own}, magnitude {m})")
+            return diff / max(m, 1e-30), own / max(m, 1e-30)
+
+        names = ["P2", "P3", "P4", "P5", "class probabilities", "box deltas"]
+        line = []
+        for name, g_, c16, c32 in zip(names, fwd[("cuda", torch.bfloat16)],
+                                      fwd[("cpu", torch.bfloat16)], fwd[("cpu", torch.float32)]):
+            d, own = held(name, g_, c16, c32)
+            line.append(f"{name} {d:.3g} (CPU's own {own:.3g})")
+        log("BF16 REFERENCE small model card vs CPU, of the largest value: " + "; ".join(line))
+
+        boxes_np = np.zeros((b, gt, 4))
+        area = (props[..., 2] - props[..., 0]) * (props[..., 3] - props[..., 1])
+        for i in range(b):
+            boxes_np[i, :3] = props[i, np.argsort(-area[i].numpy())[:3]].numpy() * size
+        y1x1 = rng.uniform(4, 64, (b, 2, 2))
+        boxes_np[:, 3:] = np.concatenate([y1x1, y1x1 + rng.uniform(16, 60, (b, 2, 2))], -1)
+        batch_np = {"images": images_np, "gt_class_ids": rng.randint(1, 8, (b, gt)),
+                    "gt_boxes": boxes_np, "gt_masks": rng.rand(b, gt, 14, 14) > 0.5}
+        n_anchors = int(card.anchors.shape[0])
+        draws_np = {"rpn": rng.rand(b, 2, n_anchors), "det": rng.rand(b, 2, 48)}
+        before = {n: p.detach().cpu().clone() for n, p in card.named_parameters()}
+        for (dev, dtype), model in models.items():
+            st = create_train_state(tsmall, model)
+            set_trainable(model, "all")
+            batch = {k: torch.as_tensor(v).to(dev, torch.int32 if k == "gt_class_ids"
+                                               else torch.float32)
+                     for k, v in batch_np.items()}
+            draws = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                     for k, v in draws_np.items()}
+            model._propose = lambda *a, dev=dev: props.to(dev)
+            metrics = train_step(st, tsmall, batch, 0.01, 1.0, draws=draws)
+            runs[(dev, dtype)] = ({k: float(v) for k, v in metrics.items()},
+                                  torch.cat([(p.detach().cpu().double() - before[n].double())
+                                             .reshape(-1) for n, p in model.named_parameters()]),
+                                  st.buffer.cpu())
+        g16, c16, c32 = runs[("cuda", torch.bfloat16)], runs[("cpu", torch.bfloat16)], \
+            runs[("cpu", torch.float32)]
+        loss_line = []
+        for k in sorted(k for k in c32[0] if k.endswith("_loss")):
+            d, own = held(k, torch.tensor(g16[0][k]), torch.tensor(c16[0][k]),
+                          torch.tensor(c32[0][k]))
+            loss_line.append(f"{k.replace('_loss', '')} {d:.3g} ({own:.3g})")
+        b_d, b_own = held("buffer", g16[2], c16[2], c32[2])
+        upd = float((g16[1] - c16[1]).norm()) / float(c32[1].norm())
+        upd_own = float((c16[1] - c32[1]).norm()) / float(c32[1].norm())
+        log("BF16 REFERENCE train step card vs CPU, relative (CPU's own bf16 error): "
+            + "; ".join(loss_line) + f"; buffer {b_d:.3g} ({b_own:.3g}); parameter updates, "
+            f"L2 over all parameters {upd:.3g} ({upd_own:.3g}); positives "
+            f"{g16[0]['positive_rois']:.0f}, meta {g16[0]['meta_loss']:.4g}")
+        require(upd <= 2 * upd_own, "the card's bf16 parameter updates differ from the CPU's")
+        require(g16[0]["positive_rois"] > 0 and g16[0]["meta_loss"] > 0,
+                "the bf16 reference step had no positive RoI or no meta loss")
+
+    phase("bf16_main_path", bf16_main_path)
+    phase("bf16_train_path", bf16_train_path)
+    phase("bf16_eval_path", bf16_eval_path)
+    phase("bf16_reference", bf16_reference)
 
     if failures:
         log("FAILED phases: " + ", ".join(failures))

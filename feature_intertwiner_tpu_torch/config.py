@@ -10,7 +10,8 @@ Differences from the JAX copy:
 - a ``CUDA`` namespace for the port's own options, added to the tree before
   any merge (the merge rejects unknown keys);
 - the ``TPU`` namespace stays parseable so every YAML of the repo loads, and
-  the port ignores it;
+  the port ignores it but for ``TPU.COMPUTE_DTYPE``, the model's compute
+  dtype (``main.py``);
 - ``yaml`` is imported only inside :meth:`Config.merge_from_file`, so the
   port runs where PyYAML is missing as long as no YAML file is read.
 """
@@ -191,7 +192,8 @@ def _default_tree() -> AttrDict:
     )
 
     # The JAX package's TPU options: parsed so that every YAML loads, and
-    # ignored by the port.
+    # ignored by the port but for COMPUTE_DTYPE, the one TPU key it reads: the
+    # command line builds the model in it (float32 parameters either way).
     cfg.TPU = AttrDict(
         MESH_DATA=-1,
         COMPUTE_DTYPE="bfloat16",

@@ -35,7 +35,10 @@
 // atomics. Small windows barely overlap (1.3 windows per covered pixel at
 // 8x8 on the window sweep): ops/window_sum.py::window_plan gives them group
 // 1, and a group of one has nothing to stage, so its warp reads its window
-// straight from global memory, two channels a lane, with no sort.
+// straight from global memory, two channels a lane, with no sort. A map
+// whose channel count is odd, or that does not start on a channel pair,
+// cannot be read in pairs: window_plan gives it group 1 at any window size,
+// one channel a lane (V = 1), in the same order.
 //
 // Bound on the card. Bytes: the map pixels some window covers, read once,
 // over 3.35 TB/s; operations: one fp32 add per window element, one issue
@@ -71,10 +74,16 @@ __host__ __device__ constexpr int meta_bytes(int group) {
   return (kMetaInts * 4 + group * 5 * 4 + 127) / 128 * 128;
 }
 
-// V consecutive channels (V = 2 or 4) as one thread reads them, widened to
-// fp32.
+// V consecutive channels (V = 1, 2 or 4) as one thread reads them, widened
+// to fp32.
 template <typename T, int V>
 struct Lanes;
+
+template <>
+struct Lanes<float, 1> {
+  using Word = float;
+  static __device__ __forceinline__ void widen(float v, float* f) { f[0] = v; }
+};
 
 template <>
 struct Lanes<float, 2> {
@@ -98,6 +107,14 @@ struct Lanes<float, 4> {
 
 // A bfloat16 is the top half of a float; the lower address holds the lower
 // channel.
+template <>
+struct Lanes<__nv_bfloat16, 1> {
+  using Word = unsigned short;
+  static __device__ __forceinline__ void widen(unsigned short v, float* f) {
+    f[0] = __uint_as_float((unsigned)v << 16);
+  }
+};
+
 template <>
 struct Lanes<__nv_bfloat16, 2> {
   using Word = unsigned;
@@ -165,8 +182,10 @@ __device__ __forceinline__ void store(float* p, float* acc, bool inside) {
   }
   if constexpr (V == 4) {
     __stcs(reinterpret_cast<float4*>(p), make_float4(acc[0], acc[1], acc[2], acc[3]));
-  } else {
+  } else if constexpr (V == 2) {
     __stcs(reinterpret_cast<float2*>(p), make_float2(acc[0], acc[1]));
+  } else {
+    __stcs(p, acc[0]);
   }
 }
 
@@ -353,13 +372,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // A group of one: the window has nothing to share, so its warp reads its
-// pixels straight from global memory, two channels a lane, kUnroll loads in
-// flight. Grid (windows / (kThreads / kLanes), channel chunks of kLanes * 2).
-template <typename T>
+// pixels straight from global memory, V (2, or 1 for an odd or unpaired
+// map) channels a lane, kUnroll loads in flight. Grid (windows / (kThreads
+// / kLanes), channel chunks of kLanes * V).
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     window_sum_direct(const T* __restrict__ img, const int* __restrict__ origins, int n,
                       int batch, int h, int w, int c, int sy, int sx, float* __restrict__ out) {
-  constexpr int V = 2;
   using Word = typename Lanes<T, V>::Word;
   const int j = blockIdx.x * (kThreads / kLanes) + threadIdx.x / kLanes;
   const int ch = blockIdx.y * kLanes * V + V * (threadIdx.x % kLanes);
@@ -413,19 +432,19 @@ int launch_staged(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int V>
 int launch_direct(const Args& a) {
   constexpr int kWindows = kThreads / kLanes;
   const dim3 grid((unsigned)((a.n + kWindows - 1) / kWindows),
-                  (unsigned)((a.c + kLanes * 2 - 1) / (kLanes * 2)));
-  window_sum_direct<T><<<grid, kThreads, 0, a.stream>>>(
+                  (unsigned)((a.c + kLanes * V - 1) / (kLanes * V)));
+  window_sum_direct<T, V><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.img), a.origins, a.n, a.batch, a.h, a.w, a.c, a.sy, a.sx, a.out);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const Args& a, int vec) {
-  if (a.group == 1) return launch_direct<T>(a);
+  if (a.group == 1) return vec == 1 ? launch_direct<T, 1>(a) : launch_direct<T, 2>(a);
   return vec == 4 ? launch_staged<T, 4>(a) : launch_staged<T, 2>(a);
 }
 
@@ -450,9 +469,9 @@ extern "C" int window_sum_keys(const int* origins, int n, int batch, int h, int 
 
 // img [batch, h, w, c] (float32 when is_bf16 is 0, bfloat16 when 1) and
 // origins [n, 3] int32, contiguous, in device memory, the map aligned to V
-// channels (vec, 2 or 4; c a multiple of it); out [n, c] float32. The plan
-// is ops/window_sum.py::window_plan's: group 1 reads each window directly,
-// two channels a lane; a group of 2 to kGroup windows stages their rows,
+// channels (vec, 1, 2 or 4; c a multiple of it); out [n, c] float32. The
+// plan is ops/window_sum.py::window_plan's: group 1 reads each window
+// directly, vec (1 or 2) channels a lane; a group of 2 to kGroup windows stages their rows,
 // `piece` pixels at a time, and needs `order`, [n] int64, the windows
 // sorted by window_sum_keys (stable). Launches on `stream` and returns the
 // cudaError_t of the launch.
@@ -462,7 +481,8 @@ extern "C" int window_sum(const void* img, int is_bf16, const int* origins,
   const int es = is_bf16 ? 2 : 4;
   const bool staged = group > 1;
   const long long shared = staged ? meta_bytes(group) + 2LL * piece * kLanes * vec * es : 0;
-  if (!shape_ok(n, batch, h, w, sy, sx) || (vec != 2 && vec != 4) || (!staged && vec != 2) ||
+  if (!shape_ok(n, batch, h, w, sy, sx) || (vec != 1 && vec != 2 && vec != 4) ||
+      (staged && vec == 1) || (!staged && vec == 4) ||
       c < vec || c % vec || (uintptr_t)img % (vec * es) || group < 1 || group > kGroup ||
       (c + kLanes * vec - 1) / (kLanes * vec) > 65535 ||
       (staged && (piece < 1 || shared > kSharedLimit))) {

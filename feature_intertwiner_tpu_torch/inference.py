@@ -36,13 +36,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def build_model(cfg, device=None, seed: Optional[int] = None) -> InterNet:
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def build_model(cfg, device=None, seed: Optional[int] = None,
+                dtype: torch.dtype = torch.float32) -> InterNet:
     """InterNet in eval mode on ``device`` (default ``"cuda"``),
-    channels-last. ``seed`` draws random weights from a CPU generator (the
-    JAX package's initialisers); without it the weights are torch's
-    defaults, to be replaced by ``load_state_dict``."""
+    channels-last, computing in ``dtype`` with float32 parameters (the
+    default float32, as JAX ``InterNet.from_config``; the command line
+    passes ``TPU.COMPUTE_DTYPE``). ``seed`` draws random weights from a CPU
+    generator (the JAX package's initialisers); without it the weights are
+    torch's defaults, to be replaced by ``load_state_dict``."""
     dev = resolve_device(device)
-    model = InterNet.from_config(cfg)
+    model = InterNet.from_config(cfg, dtype=dtype)
     if seed is not None:
         init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device=dev, memory_format=torch.channels_last).eval()

@@ -11,7 +11,10 @@ with ``TRAIN.DO_VALIDATION`` an evaluation at the end of each stage.
 folder's when the inference folder has none) and runs the COCO evaluation
 (``train/workflow.py::test_model``, the 12 bbox stats), caching the
 detections in ``results/<name>/inference/``. Both run on the GPU unless
-``--device cpu`` is given. Float32 throughout, TF32 off.
+``--device cpu`` is given. The model computes in ``TPU.COMPUTE_DTYPE``
+(bfloat16 by default) with float32 parameters, as the JAX ``main.py``
+builds it; ``--phase inference`` re-types it to ``TEST.DTYPE`` where that is
+set and differs. TF32 is off for the float32 convolutions and matmuls.
 
 ``--synthetic_data`` builds the JAX package's synthetic set (8 images) in
 memory, with its COCO ground truth. What is not ported yet raises
@@ -30,7 +33,7 @@ from .config import build_config
 from .data import synthetic
 from .data.loader import DetectionDataset, Loader
 from .evaluation import COCO
-from .inference import build_model
+from .inference import COMPUTE_DTYPES, build_model
 from .train.workflow import Trainer, test_model, train_model
 from .utils.logging import print_log
 
@@ -72,12 +75,17 @@ def main(argv: Optional[Sequence[str]] = None):
     dataset = synthetic.generate(num_images=8)
     # the synthetic set has fewer classes than COCO's 81
     cfg.DATASET.NUM_CLASSES = dataset.num_classes
-    model = build_model(cfg, device=args.device, seed=cfg.MISC.SEED)
-    print_log(f"device: {next(model.parameters()).device}", cfg.MISC.LOG_FILE, init=True)
+    model = build_model(cfg, device=args.device, seed=cfg.MISC.SEED,
+                        dtype=COMPUTE_DTYPES[cfg.TPU.COMPUTE_DTYPE])
+    print_log(f"device: {next(model.parameters()).device}, compute dtype {model.dtype}",
+              cfg.MISC.LOG_FILE, init=True)
     cfg.display(lambda msg: print_log(msg, cfg.MISC.LOG_FILE, quiet_terminal=True))
     val_api = COCO(dataset=dataset.coco_dataset())
     trainer = Trainer(model, cfg).resume()
     if args.phase == "inference":
+        # the same float32 parameters, evaluated in TEST.DTYPE where it is set
+        if cfg.TEST.DTYPE and cfg.TEST.DTYPE != cfg.TPU.COMPUTE_DTYPE:
+            trainer.model.dtype = COMPUTE_DTYPES[cfg.TEST.DTYPE]
         return test_model(trainer.model, cfg, dataset, val_api, epoch=trainer.epoch)
     loader = Loader(DetectionDataset(dataset, cfg, augment=True, seed=cfg.MISC.SEED),
                     batch_size=cfg.TRAIN.BATCH_SIZE, shuffle=True, seed=cfg.MISC.SEED)

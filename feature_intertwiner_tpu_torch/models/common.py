@@ -1,7 +1,18 @@
-"""Shared building blocks: BN per site, TF-"SAME" padding, weight init.
+"""Shared building blocks: layers that compute in their input's dtype, BN
+per site, TF-"SAME" padding, weight init.
 
 The modules are NCHW; the model keeps its activations in
 ``torch.channels_last`` memory, so an NHWC view of a map is free.
+
+Compute dtype, as flax's ``dtype``/``param_dtype``: parameters stay
+float32, and :class:`Conv2d`, :class:`ConvTranspose2d` and :class:`Linear`
+cast their weight and bias to their input's dtype (bfloat16 in a bfloat16
+model) and give a result in it. ``nn.BatchNorm2d`` takes a bfloat16 input
+with its float32 affine parameters and running statistics, computes in
+float32 and gives bfloat16, as flax's ``BatchNorm(dtype=bfloat16)`` does.
+The model casts its images to its dtype before the backbone
+(``models/detector.py``), so every layer after runs in it; the modules
+cast back to float32 where the JAX package does.
 
 BatchNorm epsilons per site, as in the JAX package (``models/common.py``):
 1e-3 for the backbone, FPN, classifier and mask head, 1e-5 for the Dev
@@ -24,6 +35,31 @@ from torch import nn
 
 BN_EPS = 1e-3        # backbone, FPN, classifier, mask head
 DEV_BN_EPS = 1e-5    # Dev upsampler and critic
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (no ``output_size``) computing in its input's
+    dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                                  self.stride, self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 def batch_norm(channels: int, eps: float = BN_EPS, momentum: float = 0.01) -> nn.BatchNorm2d:
@@ -53,19 +89,37 @@ class SamePad2d(nn.Module):
         return F.pad(x, (left, right, top, bottom), value=self.value)
 
 
+# flax's truncated_normal variance scaling draws N(0, 1) cut at +-2 and
+# scales it by sqrt(variance) / TRUNC_STD, the standard deviation of that cut
+# normal, so that the draw keeps the variance
+TRUNC_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights as the JAX package initialises them:
-    Xavier-uniform convolutions, N(0, 0.01) dense layers, zero biases, BN at
-    identity (scale 1, bias 0, running statistics (0, 1)). The generator is
-    a CPU generator; initialise before moving the model."""
+    Xavier-uniform convolutions, Xavier-normal transposed convolutions
+    (flax ``xavier_normal``: a normal truncated at two of its standard
+    deviations, of variance 2 / (fan_in + fan_out)), the delta kernel of
+    the JAX ``_identity_conv_init`` (zero but the centre tap's [out, in]
+    identity) for a conv marked ``delta_init`` (``DEV.UPSAMPLE_INIT
+    identity``), N(0, 0.01) dense layers, zero biases, BN at identity (scale 1, bias 0, running
+    statistics (0, 1)). The generator is a CPU generator; initialise before
+    moving the model."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
             # fan_in + fan_out, the same for a conv and its transpose
             fans = (w.shape[0] + w.shape[1]) * w[0, 0].numel()
-            bound = math.sqrt(6.0 / fans)
-            w.uniform_(-bound, bound, generator=generator)
+            if getattr(m, "delta_init", False):
+                w.zero_()
+                w[:, :, w.shape[2] // 2, w.shape[3] // 2] = torch.eye(w.shape[0], w.shape[1])
+            elif isinstance(m, nn.ConvTranspose2d):
+                std = math.sqrt(2.0 / fans) / TRUNC_STD
+                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator).mul_(std)
+            else:
+                bound = math.sqrt(6.0 / fans)
+                w.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Linear):

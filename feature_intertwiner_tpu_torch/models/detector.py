@@ -11,6 +11,13 @@ proposes ``POST_NMS_ROIS_INFERENCE`` boxes (``POST_NMS_ROIS_TRAINING`` with
 ``MODEL.STRICT_QUIRKS`` off) and BN stays in eval mode, its running
 statistics frozen; the caller keeps the model in ``eval()``.
 
+``dtype`` is the compute dtype (JAX ``InterNet.dtype``): the images are
+cast to it before the backbone and every layer after computes in it
+(``models/common.py``), with float32 parameters. The proposal layer, the
+detection layer and the losses take float32 inputs, cast where the JAX
+package casts. Re-typing a model (``model.dtype = torch.float32``, JAX
+``model.clone(dtype=...)``) keeps its parameters.
+
 The top-level module names follow the reference checkpoints: ``fpn`` (with
 the backbone stages inside), ``rpn``, ``dev_roi``, ``classifier`` and
 ``mask``.
@@ -62,6 +69,7 @@ class InterNet(nn.Module):
         dev_switch: bool = False,
         dev_structure: str = "beta",
         dev_upsample_fac: float = 2.0,
+        dev_upsample_init: str = "xavier",
         dev_upsample_residual: bool = False,
         dev_multi_upsampler: bool = False,
         dev_dis_upsampler: bool = False,
@@ -80,8 +88,12 @@ class InterNet(nn.Module):
         dev_baseline: bool = False,
         dev_big_supervise: bool = False,
         dev_big_feat_detach: bool = True,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype float32 or bfloat16, got {dtype}")
+        self.dtype = dtype
         if dev_switch and cls_merge_feat and dev_structure == "beta":
             raise NotImplementedError("DEV.CLS_MERGE_FEAT")
         if tuple(mask_shape) != (2 * mask_pool_size, 2 * mask_pool_size):
@@ -113,6 +125,7 @@ class InterNet(nn.Module):
             assign_base=assign_base, use_dev=dev_switch,
             structure=dev_structure, roi_method=roi_method,
             upsample_fac=dev_upsample_fac,
+            upsample_init=dev_upsample_init,
             upsample_residual=dev_upsample_residual,
             multi_upsampler=dev_multi_upsampler,
             dis_upsampler=dev_dis_upsampler,
@@ -148,8 +161,8 @@ class InterNet(nn.Module):
         return self._scale_anchors[key]
 
     @classmethod
-    def from_config(cls, cfg) -> "InterNet":
-        """Build from a finalized Config (config.py)."""
+    def from_config(cls, cfg, dtype: torch.dtype = torch.float32) -> "InterNet":
+        """Build from a finalized Config (config.py), computing in ``dtype``."""
         return cls(
             backbone=cfg.MODEL.BACKBONE,
             num_classes=cfg.DATASET.NUM_CLASSES,
@@ -173,6 +186,7 @@ class InterNet(nn.Module):
             dev_switch=cfg.DEV.SWITCH,
             dev_structure=cfg.DEV.STRUCTURE,
             dev_upsample_fac=cfg.DEV.UPSAMPLE_FAC,
+            dev_upsample_init=cfg.DEV.UPSAMPLE_INIT,
             dev_upsample_residual=cfg.DEV.UPSAMPLE_RESIDUAL,
             dev_multi_upsampler=cfg.DEV.MULTI_UPSAMPLER,
             dev_dis_upsampler=cfg.DEV.DIS_UPSAMPLER,
@@ -191,6 +205,7 @@ class InterNet(nn.Module):
             dev_baseline=cfg.DEV.BASELINE,
             dev_big_supervise=cfg.DEV.BIG_SUPERVISE,
             dev_big_feat_detach=cfg.DEV.BIG_FEAT_DETACH,
+            dtype=dtype,
         )
 
     def _propose(self, rpn_probs, rpn_deltas, count: int,
@@ -204,10 +219,11 @@ class InterNet(nn.Module):
 
     def first_stage(self, images: torch.Tensor,
                     image_size: Optional[int] = None) -> Tuple[List[torch.Tensor], ...]:
-        """images [B, S, S, 3] NHWC -> (pyramid [P2..P6] NCHW, rpn_probs
-        [B, A, 2], rpn_deltas [B, A, 4], proposals [B, R, 4] normalised).
-        ``image_size`` is S where it is not the configured size."""
-        pyramid = self.fpn(images.permute(0, 3, 1, 2))
+        """images [B, S, S, 3] NHWC -> (pyramid [P2..P6] NCHW in the compute
+        dtype, rpn_probs [B, A, 2] float32, rpn_deltas [B, A, 4], proposals
+        [B, R, 4] normalised). ``image_size`` is S where it is not the
+        configured size."""
+        pyramid = self.fpn(images.to(self.dtype).permute(0, 3, 1, 2))
         _, rpn_probs, rpn_deltas = run_rpn_over_pyramid(self.rpn, pyramid)
         proposals = self._propose(rpn_probs, rpn_deltas, self.post_nms_inference, image_size)
         return pyramid, rpn_probs, rpn_deltas, proposals
@@ -270,7 +286,7 @@ class InterNet(nn.Module):
         statistics, see :meth:`Dev.forward_train`); the buffer update and
         the meta loss are the train step's (``train/step.py``)."""
         b = images.shape[0]
-        pyramid = self.fpn(images.permute(0, 3, 1, 2))
+        pyramid = self.fpn(images.to(self.dtype).permute(0, 3, 1, 2))
         rpn_logits, rpn_probs, rpn_deltas = run_rpn_over_pyramid(self.rpn, pyramid)
         count = self.post_nms_inference if self.strict_quirks else self.post_nms_train
         draws = draws or {}

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import SamePad2d
+from .common import Conv2d, SamePad2d
 from .resnet import ResNet
 
 
@@ -32,9 +32,9 @@ class FPN(nn.Module):
         self.C1, self.C2, self.C3, self.C4, self.C5 = (
             backbone.C1, backbone.C2, backbone.C3, backbone.C4, backbone.C5)
         for level, cin in ((5, 2048), (4, 1024), (3, 512), (2, 256)):
-            setattr(self, f"P{level}_conv1", nn.Conv2d(cin, out_channels, 1))
+            setattr(self, f"P{level}_conv1", Conv2d(cin, out_channels, 1))
             setattr(self, f"P{level}_conv2", nn.Sequential(
-                SamePad2d(3, 1), nn.Conv2d(out_channels, out_channels, 3)))
+                SamePad2d(3, 1), Conv2d(out_channels, out_channels, 3)))
 
     # the stages are this module's own C1..C5, so ResNet's forward applies
     bottom_up = ResNet.forward

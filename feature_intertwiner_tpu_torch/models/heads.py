@@ -16,7 +16,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from .common import batch_norm
+from .common import Conv2d, ConvTranspose2d, Linear, batch_norm
 
 
 class BoxHead(nn.Module):
@@ -27,12 +27,12 @@ class BoxHead(nn.Module):
         super().__init__()
         self.num_classes = num_classes
         # fc1 is a conv whose kernel is the pool size, VALID: an FC as a conv
-        self.conv1 = nn.Conv2d(depth, 1024, pool_size)
+        self.conv1 = Conv2d(depth, 1024, pool_size)
         self.bn1 = batch_norm(1024)
-        self.conv2 = nn.Conv2d(1024, 1024, 1)
+        self.conv2 = Conv2d(1024, 1024, 1)
         self.bn2 = batch_norm(1024)
-        self.linear_class = nn.Linear(1024, num_classes)
-        self.linear_bbox = nn.Linear(1024, num_classes * 4)
+        self.linear_class = Linear(1024, num_classes)
+        self.linear_bbox = Linear(1024, num_classes * 4)
         self.relu = nn.ReLU(inplace=True)
 
     def forward(self, pooled) -> Tuple[torch.Tensor, ...]:
@@ -53,11 +53,11 @@ class MaskHead(nn.Module):
     def __init__(self, num_classes: int, depth: int = 256):
         super().__init__()
         for i in range(1, 5):
-            setattr(self, f"conv{i}", nn.Conv2d(depth if i == 1 else 256, 256, 3, padding=1))
+            setattr(self, f"conv{i}", Conv2d(depth if i == 1 else 256, 256, 3, padding=1))
             # eps 1e-3 with torch's default momentum, as the JAX package has it
             setattr(self, f"bn{i}", batch_norm(256, momentum=0.1))
-        self.deconv = nn.ConvTranspose2d(256, 256, 2, stride=2)
-        self.conv5 = nn.Conv2d(256, num_classes, 1)
+        self.deconv = ConvTranspose2d(256, 256, 2, stride=2)
+        self.conv5 = Conv2d(256, num_classes, 1)
         self.relu = nn.ReLU(inplace=True)
 
     def forward(self, x):

@@ -22,6 +22,10 @@ per-class means (:func:`class_mean`). A level without small RoIs has its big
 statistics zeroed. The big side is computed without gradient
 (``BIG_FEAT_DETACH``).
 
+The make-up block, the poolings and the critic run in the maps' dtype
+(bfloat16 in a bfloat16 model); the critic's vectors go to float32 before
+the last op, and the class means and the meta loss are float32, as in JAX.
+
 At inference the critic feeds only ``CLS_MERGE_FEAT``, which the port does
 not have yet, so the inference path does not run it. Each variant outside
 the port raises ``NotImplementedError`` naming itself.
@@ -37,7 +41,7 @@ from torch import nn
 
 from ..ops.roi_align import (assign_fpn_level, crop_and_resize,
                              multilevel_crop_and_resize)
-from .common import DEV_BN_EPS, batch_norm, same_padding
+from .common import DEV_BN_EPS, Conv2d, batch_norm, same_padding
 
 META_LEVELS = (2, 3, 4)
 
@@ -64,14 +68,21 @@ def big_mask(level_id: int, lvl: torch.Tensor) -> torch.Tensor:
 
 
 class UpsampleBlock(nn.Sequential):
-    """The make-up layer at ``UPSAMPLE_FAC`` 1.0: 3×3 conv, BN, ReLU."""
+    """The make-up layer at ``UPSAMPLE_FAC`` 1.0: 3×3 conv, BN, ReLU.
+    ``init_mode`` is ``DEV.UPSAMPLE_INIT``: ``xavier`` (the reference) or
+    ``identity``, under which ``init_weights`` gives the conv the delta
+    kernel, so that the block starts as ``relu(x)``."""
 
-    def __init__(self, channels: int, factor: float = 1.0):
+    def __init__(self, channels: int, factor: float = 1.0, init_mode: str = "xavier"):
+        if init_mode not in ("xavier", "identity"):
+            raise ValueError(f"UPSAMPLE_INIT must be xavier|identity, got {init_mode}")
         if factor != 1.0:
             raise NotImplementedError(
                 f"DEV.UPSAMPLE_FAC {factor}: only 1.0 is ported")
+        conv = Conv2d(channels, channels, 3, padding=1)
+        conv.delta_init = init_mode == "identity"
         super().__init__(
-            nn.Conv2d(channels, channels, 3, padding=1),
+            conv,
             batch_norm(channels, eps=DEV_BN_EPS, momentum=0.1),
             nn.ReLU(inplace=True),
         )
@@ -85,13 +96,13 @@ class Critic(nn.Sequential):
     def __init__(self, channels: int = 256, feat_pool_size: int = 14):
         k = feat_pool_size // 2
         super().__init__(
-            nn.Conv2d(channels, 512, 3, stride=2),
+            Conv2d(channels, 512, 3, stride=2),
             batch_norm(512, eps=DEV_BN_EPS, momentum=0.1),
             nn.ReLU(inplace=True),
-            nn.Conv2d(512, 1024, k),
+            Conv2d(512, 1024, k),
             batch_norm(1024, eps=DEV_BN_EPS, momentum=0.1),
             nn.ReLU(inplace=True),
-            nn.Conv2d(1024, 1024, 1),
+            Conv2d(1024, 1024, 1),
             batch_norm(1024, eps=DEV_BN_EPS, momentum=0.1),
             nn.ReLU(inplace=True),
         )
@@ -114,6 +125,7 @@ class Dev(nn.Module):
         structure: str = "beta",
         roi_method: str = "roi_align",
         upsample_fac: float = 2.0,
+        upsample_init: str = "xavier",
         upsample_residual: bool = False,
         multi_upsampler: bool = False,
         dis_upsampler: bool = False,
@@ -139,7 +151,7 @@ class Dev(nn.Module):
                 raise NotImplementedError("DEV.ASSIGN_BOX_ON_ALL_SCALE")
             if upsample_residual:
                 raise NotImplementedError("DEV.UPSAMPLE_RESIDUAL")
-            self.upsample = nn.ModuleList([UpsampleBlock(channels, upsample_fac)])
+            self.upsample = nn.ModuleList([UpsampleBlock(channels, upsample_fac, upsample_init)])
             self.feat_extract = Critic(channels, feat_pool_size)
         self.use_dev = use_dev
         self.image_size = image_size

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from .common import SamePad2d, batch_norm
+from .common import Conv2d, SamePad2d, batch_norm
 
 STAGE_DEPTHS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
 
@@ -24,14 +24,14 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  projection: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, stride=stride)
+        self.conv1 = Conv2d(inplanes, planes, 1, stride=stride)
         self.bn1 = batch_norm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1)
         self.bn2 = batch_norm(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1)
+        self.conv3 = Conv2d(planes, planes * 4, 1)
         self.bn3 = batch_norm(planes * 4)
         self.downsample = (nn.Sequential(
-            nn.Conv2d(inplanes, planes * 4, 1, stride=stride),
+            Conv2d(inplanes, planes * 4, 1, stride=stride),
             batch_norm(planes * 4)) if projection else None)
         self.relu = nn.ReLU(inplace=True)
 
@@ -56,7 +56,7 @@ class ResNet(nn.Module):
         super().__init__()
         depths = STAGE_DEPTHS[architecture]
         self.C1 = nn.Sequential(
-            nn.Conv2d(3, 64, 7, stride=2, padding=3),
+            Conv2d(3, 64, 7, stride=2, padding=3),
             batch_norm(64),
             nn.ReLU(inplace=True),
             SamePad2d(3, 2, value=float("-inf")),

@@ -3,8 +3,10 @@
 Port of ``feature_intertwiner_tpu/models/rpn.py``: a shared 3×3/512 conv and
 ReLU, then 1×1 class (2 per anchor) and box (4 per anchor) convs. The maps
 are permuted to NHWC before the ``[B, H·W·A, 2]`` reshape, so the anchor
-order is the JAX package's (cells row-major, anchor fastest). The softmax
-runs in fp32.
+order is the JAX package's (cells row-major, anchor fastest). The convs
+run in the input's dtype; the softmax runs in fp32, and the proposal layer
+and the losses take the logits and deltas to fp32 (JAX
+``models/detector.py``, ``train/losses.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import List, Tuple
 import torch
 from torch import nn
 
+from .common import Conv2d
+
 
 class RPNHead(nn.Module):
     def __init__(self, anchors_per_location: int = 3, anchor_stride: int = 1,
@@ -22,9 +26,9 @@ class RPNHead(nn.Module):
         if anchor_stride != 1:
             raise NotImplementedError("RPN.ANCHOR_STRIDE other than 1")
         a = anchors_per_location
-        self.conv_shared = nn.Conv2d(depth, 512, 3, padding=1)
-        self.conv_class = nn.Conv2d(512, 2 * a, 1)
-        self.conv_bbox = nn.Conv2d(512, 4 * a, 1)
+        self.conv_shared = Conv2d(depth, 512, 3, padding=1)
+        self.conv_class = Conv2d(512, 2 * a, 1)
+        self.conv_bbox = Conv2d(512, 4 * a, 1)
         self.relu = nn.ReLU(inplace=True)
 
     def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

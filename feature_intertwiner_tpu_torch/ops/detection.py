@@ -34,9 +34,13 @@ def detection_layer(
     min_confidence: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """rois [B, R, 4] normalised; probs [B, R, K]; deltas [B, R, K, 4];
-    windows [B, 4] pixel (y1, x1, y2, x2) of each un-padded image.
+    windows [B, 4] pixel (y1, x1, y2, x2) of each un-padded image; all
+    float32 (a bfloat16 model casts its head outputs first, as the JAX
+    package does).
 
     Returns (detections [B, M, 6], keep_idx [B, M] into R, keep_valid [B, M])."""
+    if any(t.dtype != torch.float32 for t in (rois, probs, deltas, windows)):
+        raise TypeError("detection_layer takes float32 boxes, scores, deltas and windows")
     h, w = image_size
     scale = rois.new_tensor([h, w, h, w])
     std = torch.as_tensor(bbox_std_dev, dtype=torch.float32, device=rois.device)

@@ -28,7 +28,11 @@ def proposal_layer(
 ) -> torch.Tensor:
     """Normalised proposals [B, proposal_count, 4], zero-padded.
 
-    rpn_probs [B, A, 2]; rpn_deltas [B, A, 4]; anchors [A, 4] in pixels."""
+    rpn_probs [B, A, 2]; rpn_deltas [B, A, 4]; anchors [A, 4] in pixels;
+    all float32 (a bfloat16 model casts its RPN outputs first, as the JAX
+    package does)."""
+    if any(t.dtype != torch.float32 for t in (rpn_probs, rpn_deltas, anchors)):
+        raise TypeError("proposal_layer takes float32 scores, deltas and anchors")
     h, w = image_size
     scores = rpn_probs[:, :, 1]
     std = torch.as_tensor(bbox_std_dev, dtype=rpn_deltas.dtype, device=rpn_deltas.device)

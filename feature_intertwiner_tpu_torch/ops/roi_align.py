@@ -37,6 +37,13 @@ The single-level crops of boxes grouped per image (``[B, NB, 4]`` boxes,
 ``csrc/crop_and_resize.cu`` on the card; and :func:`crop_and_resize_fused`,
 the JAX custom VJP of the same name (K4 forward, K3 backward). They sample
 as those kernels do, with a true division and no fused multiply-add.
+
+Maps may be float32 or bfloat16 (:data:`POOL_DTYPES`). A bfloat16 map is
+widened to float32 once per call (exact), the float32 kernel or plain
+version runs, and the crops are rounded once to bfloat16, as the JAX window
+kernel adds in float32 and writes the maps' dtype; a bfloat16 cotangent is
+widened likewise and each level's gradient rounded once to bfloat16, as the
+JAX custom VJP casts its float32 gradients to the levels' dtype.
 """
 
 from __future__ import annotations
@@ -48,6 +55,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from . import cuda_build
+
+# The map dtypes the RoIAlign kernels take; a bfloat16 map runs the float32
+# kernel on a widened copy.
+POOL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def assign_fpn_level(
@@ -154,7 +165,12 @@ def multilevel_gather_plain(
     """Plain version of the RoIAlign kernel: the JAX ``_multilevel_gather``.
 
     All levels flattened into one ``[B, sum(H_l W_l), C]`` buffer; each box
-    gathers its four taps through its level's offset."""
+    gathers its four taps through its level's offset. bfloat16 levels are
+    widened to float32 and the crops rounded once to bfloat16."""
+    dtype = features[0].dtype
+    if dtype == torch.bfloat16:
+        return multilevel_gather_plain([f.float() for f in features], boxes, box_indices,
+                                       level_idx, crop_size, extrapolation_value).to(dtype)
     b, _, _, c = features[0].shape
     ch, cw = crop_size
     flat = torch.cat([f.reshape(b, -1, c) for f in features], dim=1).reshape(-1, c)
@@ -200,9 +216,11 @@ def roi_align_fwd(
     crop_size: Tuple[int, int],
     extrapolation_value: float = 0.0,
 ) -> torch.Tensor:
-    """Multilevel RoIAlign forward: [N, ch, cw, C] float32.
+    """Multilevel RoIAlign forward: [N, ch, cw, C] in the levels' dtype.
 
-    features: 1 to 4 NHWC float32 maps with one batch and channel count;
+    features: 1 to 4 NHWC float32 or bfloat16 maps with one batch, channel
+    count and dtype (bfloat16 levels are widened to float32 once per call,
+    and the crops rounded once to bfloat16);
     boxes [N, 4] float32 normalised; box_indices [N] and level_idx [N]
     integers (level 0-based into ``features``).
 
@@ -216,12 +234,15 @@ def roi_align_fwd(
     _check_pooling_args([tuple(f.shape) for f in features], boxes, box_indices, level_idx)
     b, _, _, c = features[0].shape
     n, dev = boxes.shape[0], boxes.device
-    if any(f.dtype != torch.float32 or f.device != dev for f in features):
-        raise TypeError("levels must be float32 on the boxes' device")
+    dtype = features[0].dtype
+    if dtype not in POOL_DTYPES or any(f.dtype != dtype or f.device != dev for f in features):
+        raise TypeError("levels must be float32 or bfloat16, of one dtype, on the boxes' device")
+    if dtype != torch.float32:
+        features = [f.float() for f in features]        # exact, once per call
     ch, cw = (int(s) for s in crop_size)
     if dev.type == "cpu":
         return multilevel_gather_plain(features, boxes, box_indices, level_idx,
-                                       (ch, cw), extrapolation_value)
+                                       (ch, cw), extrapolation_value).to(dtype)
     if dev.type != "cuda":
         raise ValueError(f"roi_align_fwd runs on cuda or cpu, not {dev}")
     if not all(f.is_contiguous() for f in features):
@@ -247,7 +268,7 @@ def roi_align_fwd(
     cuda_build.check(err, "roi_align_fwd")
     if n > 0:  # the C entry launches nothing for no boxes
         cuda_build.launches["roi_align_fwd"] += 1
-    return out
+    return out.to(dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -328,13 +349,15 @@ def multilevel_gather_bwd_plain(
     The weights are those XLA's transpose of the lerps gives:
     ``a = g ly``, ``top = g - a``, ``bot = a``; ``tl += top - top lx``,
     ``tr += top lx``, ``bl += bot - bot lx``, ``br += bot lx``. Returns one
-    gradient ``[B, H_l, W_l, C]`` per level of ``shapes``, float32, or
-    float64 for a float64 ``g`` (then every product and sum is taken in
-    float64: the exact sum to compare a kernel's rounding with)."""
+    gradient ``[B, H_l, W_l, C]`` per level of ``shapes``, float32; float64
+    for a float64 ``g`` (then every product and sum is taken in float64: the
+    exact sum to compare a kernel's rounding with); for a bfloat16 ``g``,
+    the float32 sums rounded once to bfloat16."""
     b, c = shapes[0][0], shapes[0][3]
     (tl, tr, bl, br), ly, lx, valid = tap_rows(
         shapes, boxes, box_indices, level_idx, crop_size)
     dtype = torch.float64 if g.dtype == torch.float64 else torch.float32
+    out = torch.bfloat16 if g.dtype == torch.bfloat16 else dtype
     g = torch.where(valid[..., None], g.to(dtype), g.new_zeros((), dtype=dtype))
     a = g * ly[:, :, None, None].to(dtype)
     top = g - a
@@ -345,7 +368,7 @@ def multilevel_gather_bwd_plain(
                        (bl, a - a * lxb), (br, a * lxb)):
         flat.index_add_(0, rows.reshape(-1), vals.reshape(-1, c))
     per_level = flat.reshape(b, sum(sizes), c).split(sizes, dim=1)
-    return [d.reshape(b, s[1], s[2], c).contiguous()
+    return [d.reshape(b, s[1], s[2], c).to(out).contiguous()
             for d, s in zip(per_level, shapes)]
 
 
@@ -358,9 +381,10 @@ def roi_align_bwd(
     crop_size: Tuple[int, int],
 ) -> List[torch.Tensor]:
     """Multilevel RoIAlign backward: the gradient of :func:`roi_align_fwd`
-    with respect to each level, float32 ``[B, H_l, W_l, C]``.
+    with respect to each level, ``[B, H_l, W_l, C]`` in g's dtype.
 
-    g: the crops' cotangent [N, ch, cw, C] float32; shapes: the NHWC shapes
+    g: the crops' cotangent [N, ch, cw, C], float32 or bfloat16 (widened to
+    float32, each level's gradient rounded once to bfloat16); shapes: the NHWC shapes
     of the 1 to 4 levels; boxes, box_indices, level_idx as the forward got
     them.
 
@@ -399,11 +423,14 @@ def roi_align_bwd_with_plan(
     ch, cw = (int(v) for v in crop_size)
     n = boxes.shape[0]
     dev = boxes.device
-    if g.shape != (n, ch, cw, c) or g.dtype != torch.float32 or g.device != dev:
-        raise ValueError(f"g must be float32 [{n}, {ch}, {cw}, {c}] on the boxes' device")
+    if g.shape != (n, ch, cw, c) or g.dtype not in POOL_DTYPES or g.device != dev:
+        raise ValueError(f"g must be float32 or bfloat16 [{n}, {ch}, {cw}, {c}] "
+                         "on the boxes' device")
+    dtype = g.dtype
+    g = g.float()                                       # exact, once per call
     if dev.type == "cpu":
-        return multilevel_gather_bwd_plain(g, shapes, boxes, box_indices,
-                                           level_idx, (ch, cw)), None
+        return [d.to(dtype) for d in multilevel_gather_bwd_plain(
+            g, shapes, boxes, box_indices, level_idx, (ch, cw))], None
     if dev.type != "cuda":
         raise ValueError(f"roi_align_bwd runs on cuda or cpu, not {dev}")
     if not g.is_contiguous():
@@ -449,8 +476,9 @@ def roi_align_bwd_with_plan(
             if dst is not outs:
                 for o, d in zip(outs, dst):
                     o[..., c0:c1].copy_(d)
-    return outs, dict(items=items, partials=partials, multi_tiles=multi_tiles,
-                      max_chunks=max_chunks, pairs=pairs)
+    plan = dict(items=items, partials=partials, multi_tiles=multi_tiles,
+                max_chunks=max_chunks, pairs=pairs)
+    return [o.to(dtype) for o in outs], plan
 
 
 # csrc/roi_align_bwd.cu's constants: a tile that more than BWD_SPLIT_ABOVE
@@ -594,8 +622,8 @@ def roi_align(
     crop_size: Tuple[int, int],
     extrapolation_value: float = 0.0,
 ) -> torch.Tensor:
-    """Differentiable multilevel RoIAlign: [N, ch, cw, C] float32 crops of
-    the NHWC ``features`` (see :func:`roi_align_fwd`)."""
+    """Differentiable multilevel RoIAlign: [N, ch, cw, C] crops of the NHWC
+    ``features``, in their dtype (see :func:`roi_align_fwd`)."""
     crop = tuple(int(v) for v in crop_size)
     return RoIAlign.apply(boxes, box_indices, level_idx, crop,
                           float(extrapolation_value), *features)
@@ -726,7 +754,11 @@ def crop_and_resize_grouped_plain(image: torch.Tensor, boxes: torch.Tensor,
                                   extrapolation_value: float = 0.0) -> torch.Tensor:
     """Plain version of the K4 kernel: per sample row the y-lerp of the two
     tap rows, ``t + (b - t) fy``, then ``(1 - fx) r_l + fx r_r``;
-    ``extrapolation_value`` where the sample lies outside the map."""
+    ``extrapolation_value`` where the sample lies outside the map. A
+    bfloat16 image is widened and the crops rounded once to bfloat16."""
+    if image.dtype == torch.bfloat16:
+        return crop_and_resize_grouped_plain(image.float(), boxes, crop_size,
+                                             extrapolation_value).to(image.dtype)
     gather, (ty, by, fy, vy), (lx, rx, fx, vx) = _grouped_taps(image, boxes, crop_size)
     tl, tr, bl, br = gather(ty, lx), gather(ty, rx), gather(by, lx), gather(by, rx)
     rl = tl + (bl - tl) * fy
@@ -740,7 +772,10 @@ def crop_and_resize_grouped_mm_plain(image: torch.Tensor, boxes: torch.Tensor,
     """Plain version of the K5 kernel, its two interpolation products with
     the zeros dropped: ``(1 - fy) img[lo] + fy img[hi]`` at the x taps (the
     tap alone where ``lo == hi``, whose weight is exactly 1), then the same
-    along x; 0 outside the map."""
+    along x; 0 outside the map. A bfloat16 image is widened and the crops
+    rounded once to bfloat16."""
+    if image.dtype == torch.bfloat16:
+        return crop_and_resize_grouped_mm_plain(image.float(), boxes, crop_size).to(image.dtype)
     gather, (ty, by, fy, vy), (lx, rx, fx, vx) = _grouped_taps(image, boxes, crop_size)
 
     def y_pass(xi):
@@ -753,9 +788,8 @@ def crop_and_resize_grouped_mm_plain(image: torch.Tensor, boxes: torch.Tensor,
 
 
 def _check_grouped(name: str, image: torch.Tensor, boxes: torch.Tensor) -> None:
-    if image.dim() != 4 or image.dtype != torch.float32:
-        raise TypeError(f"{name}: image must be a [B, H, W, C] float32 map "
-                        "(bf16 maps are not ported yet)")
+    if image.dim() != 4 or image.dtype not in POOL_DTYPES:
+        raise TypeError(f"{name}: image must be a [B, H, W, C] float32 or bfloat16 map")
     if (boxes.dim() != 3 or boxes.shape[0] != image.shape[0] or boxes.shape[2] != 4
             or boxes.dtype != torch.float32):
         raise ValueError(f"{name}: boxes must be [B, NB, 4] float32, B = {image.shape[0]}")
@@ -804,8 +838,9 @@ def crop_and_resize_grouped(image: torch.Tensor, boxes: torch.Tensor,
                             crop_size: Tuple[int, int],
                             extrapolation_value: float = 0.0) -> torch.Tensor:
     """TF ``crop_and_resize`` of boxes grouped per image: image [B, H, W, C]
-    float32, boxes [B, NB, 4] normalised -> [B, NB, ch, cw, C] float32, any
-    ``extrapolation_value``, any NB and C.
+    float32 or bfloat16, boxes [B, NB, 4] normalised -> [B, NB, ch, cw, C]
+    in the image's dtype, any ``extrapolation_value``, any NB and C (a
+    bfloat16 image is widened once and the crops rounded once).
 
     Kernel wrapper: on CUDA tensors it launches ``csrc/crop_and_resize.cu``
     (which replaces ``feature_intertwiner_tpu/ops/roi_align.py::
@@ -814,6 +849,9 @@ def crop_and_resize_grouped(image: torch.Tensor, boxes: torch.Tensor,
     ``cuda_build.launches["crop_and_resize_grouped"]``."""
     _check_grouped("crop_and_resize_grouped", image, boxes)
     crop = tuple(int(v) for v in crop_size)
+    if image.dtype != torch.float32:
+        return crop_and_resize_grouped(image.float(), boxes, crop,
+                                       extrapolation_value).to(image.dtype)
     if image.device.type == "cpu":
         return crop_and_resize_grouped_plain(image, boxes, crop, extrapolation_value)
     return _launch_grouped("crop_and_resize_grouped", image, boxes, crop,
@@ -840,6 +878,8 @@ def crop_and_resize_grouped_mm(image: torch.Tensor, boxes: torch.Tensor,
     ``cuda_build.launches["crop_and_resize_grouped_mm"]``."""
     _check_grouped("crop_and_resize_grouped_mm", image, boxes)
     crop = tuple(int(v) for v in crop_size)
+    if image.dtype != torch.float32:
+        return crop_and_resize_grouped_mm(image.float(), boxes, crop).to(image.dtype)
     if image.device.type == "cpu":
         return crop_and_resize_grouped_mm_plain(image, boxes, crop)
     return _launch_grouped("crop_and_resize_grouped_mm", image, boxes, crop, 0.0)
@@ -878,6 +918,6 @@ def crop_and_resize_fused(image: torch.Tensor, boxes: torch.Tensor,
                           crop_size: Tuple[int, int],
                           extrapolation_value: float = 0.0) -> torch.Tensor:
     """Differentiable :func:`crop_and_resize_grouped` (gradient into the
-    image only): [B, H, W, C], [B, NB, 4] -> [B, NB, ch, cw, C]."""
+    image only, in its dtype): [B, H, W, C], [B, NB, 4] -> [B, NB, ch, cw, C]."""
     crop = tuple(int(v) for v in crop_size)
     return CropAndResizeFused.apply(image, boxes, crop, float(extrapolation_value))

@@ -15,7 +15,9 @@ for bit. The kernel lets overlapping windows share their map rows: sorted
 by ``b * H + y0``, the windows go in groups of :func:`window_plan`'s
 ``group`` to a block, which stages the rows they cover once in shared
 memory, piece by piece, and adds each window's pixels from there; small
-windows, which barely overlap, are read directly. The sort (a key kernel
+windows, which barely overlap, are read directly, and so is every window of
+a map with an odd channel count or one that does not start on a channel
+pair (one channel a lane). The sort (a key kernel
 and ``torch.argsort``) runs on the card; nothing is read back to the host.
 """
 
@@ -71,7 +73,7 @@ _ITEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 class WindowPlan(NamedTuple):
     group: int      # windows that share staged rows in a block; 1: read directly
     piece: int      # most pixels of a row a block stages at a time (0 when direct)
-    vec: int        # channels per item: 4 where C and the map's start allow, else 2
+    vec: int        # channels per item: 4 where C and the map's start allow, 2, or 1
     chunk: int      # channels per block: WINDOW_LANES * vec
     blocks: int     # window blocks x channel chunks
     shared: int     # shared bytes per block
@@ -87,24 +89,29 @@ def window_shared_bytes(group: int, chunk: int, piece: int, item: int) -> int:
 
 def window_vec(img: torch.Tensor) -> int:
     """Channels one thread reads at a time: 4 where C is a multiple of 4 and
-    the map starts on a 4-channel boundary, else 2."""
-    align = img.element_size() * 4
-    return 4 if img.shape[-1] % 4 == 0 and img.data_ptr() % align == 0 else 2
+    the map starts on a 4-channel boundary, 2 where C is even and the map
+    starts on a channel pair, else 1."""
+    c, ptr, item = img.shape[-1], img.data_ptr(), img.element_size()
+    if c % 4 == 0 and ptr % (4 * item) == 0:
+        return 4
+    return 2 if c % 2 == 0 and ptr % (2 * item) == 0 else 1
 
 
 @functools.lru_cache(maxsize=256)
 def window_plan(n: int, sy: int, sx: int, c: int, dtype: torch.dtype, w: int,
                 vec: int = 4) -> WindowPlan:
     """How the kernel splits ``n`` windows of ``sy x sx`` pixels over a map
-    ``w`` pixels wide with ``c`` channels of ``dtype``: read directly, two
-    channels to an item, below ``WINDOW_GROUP_AREA`` pixels; else staged in
-    groups, ``vec`` channels to an item (:func:`window_vec`; 2 where C is not
-    a multiple of 4). Depends on the shapes alone, so the launch needs
-    nothing from the card."""
-    if sy * sx < WINDOW_GROUP_AREA:
-        chunk = WINDOW_LANES * 2
+    ``w`` pixels wide with ``c`` channels of ``dtype``, ``vec`` the map's
+    :func:`window_vec`: read directly, one channel to an item, where ``vec``
+    is 1; read directly, two channels to an item, below
+    ``WINDOW_GROUP_AREA`` pixels; else staged in groups, ``vec`` channels to
+    an item (2 where C is not a multiple of 4). Depends on the shapes alone,
+    so the launch needs nothing from the card."""
+    if vec == 1 or sy * sx < WINDOW_GROUP_AREA:
+        lanes = 1 if vec == 1 else 2
+        chunk = WINDOW_LANES * lanes
         blocks = -(-n // (WINDOW_THREADS // WINDOW_LANES)) * -(-c // chunk)
-        return WindowPlan(1, 0, 2, chunk, blocks, 0)
+        return WindowPlan(1, 0, lanes, chunk, blocks, 0)
     vec = vec if c % 4 == 0 else 2
     item = _ITEM_BYTES[dtype]
     chunk = WINDOW_LANES * vec
@@ -147,10 +154,6 @@ def window_sum(img: torch.Tensor, origins: torch.Tensor, sy: int, sx: int) -> to
     if not (img.is_contiguous() and origins.is_contiguous()):
         raise ValueError("window_sum needs a contiguous map and origins")
     b, h, w, c = img.shape
-    if c % 2:
-        raise ValueError(f"window_sum: the kernel reads channel pairs, C = {c} is odd")
-    if img.data_ptr() % (2 * img.element_size()):
-        raise ValueError("window_sum: the map must start on a channel-pair boundary")
     n = origins.shape[0]
     plan = window_plan(n, sy, sx, c, img.dtype, w, window_vec(img))
     out = torch.empty((n, c), dtype=torch.float32, device=img.device)

@@ -55,8 +55,11 @@ over P2-P5, and a 14² crop of every RoI on each of P2, P3 and P4 alone (the
 big-set crops). The boxes are clustered as ``nms``'s proposals, from
 ``--seed``, each on the level ``assign_fpn_level`` gives it.
 
-The JAX scripts ran bfloat16 maps; K1, K3, K4 and K5 take float32 until
-the port has bfloat16 maps, and each line names the dtype it used. Times are CUDA
+``crop``, ``stage``, ``bwd`` and ``fwd`` run ``--dtype`` maps (and
+cotangents, and the classifier product), bfloat16 by default as the JAX
+scripts ran them: a bfloat16 map goes through the kernels' bfloat16 entry
+(widened to float32 once per call, the float32 kernel, the result rounded
+once). Each line names the dtype it used. Times are CUDA
 events on the card (mean of ``--reps`` calls after one warm-up) and the host
 clock with ``--device cpu``, where the kernels' plain versions run; each
 table names its device. Each row of a sweep also holds the function it
@@ -85,7 +88,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..inference import resolve_device
+from ..inference import COMPUTE_DTYPES, resolve_device
 from ..ops import cuda_build
 from ..ops import nms as nms_ops
 from ..ops import roi_align as roi_ops
@@ -144,11 +147,14 @@ def box_grid(boxes: torch.Tensor, crop, batch: int) -> torch.Tensor:
     return grid.reshape(batch, n // batch * ch, cw, 2)
 
 
-def crop_inputs(batch: int, boxes: int, size: int, device, seed: int = 0):
-    """The ``crop`` inputs: a [B, S, S, 256] float32 map and [B, NB, 4] boxes."""
+def crop_inputs(batch: int, boxes: int, size: int, device, seed: int = 0,
+                dtype: str = "float32"):
+    """The ``crop`` inputs: a [B, S, S, 256] map of ``dtype`` and [B, NB, 4]
+    float32 boxes."""
     rng = np.random.RandomState(seed)
     image = torch.from_numpy(rng.randn(batch, size, size, CHANNELS).astype(np.float32))
-    return image.to(device), torch.from_numpy(random_boxes(rng, (batch, boxes))).to(device)
+    return (image.to(device=device, dtype=COMPUTE_DTYPES[dtype]),
+            torch.from_numpy(random_boxes(rng, (batch, boxes))).to(device))
 
 
 def timed_rows(routes, reps: int, device: torch.device, dtype: str) -> List[Dict[str, object]]:
@@ -162,13 +168,13 @@ def timed_rows(routes, reps: int, device: torch.device, dtype: str) -> List[Dict
 
 
 def crop(batch: int = 8, boxes: int = 1024, size: int = 256, reps: int = 5,
-         device=None, crop_size=(7, 7)) -> List[Dict[str, object]]:
+         device=None, crop_size=(7, 7), dtype: str = "bfloat16") -> List[Dict[str, object]]:
     """The ``crop`` table: one row per route, with its ms."""
     dev = resolve_device(device)
-    image, grouped = crop_inputs(batch, boxes, size, dev)
+    image, grouped = crop_inputs(batch, boxes, size, dev, dtype=dtype)
     flat = grouped.reshape(-1, 4)
     idx = torch.arange(batch, dtype=torch.int32, device=dev).repeat_interleave(boxes)
-    grid = box_grid(flat, crop_size, batch)
+    grid = box_grid(flat, crop_size, batch).to(image.dtype)
     grid_sample = functools.partial(F.grid_sample, mode="bilinear", padding_mode="zeros",
                                     align_corners=True)
     routes = [
@@ -180,27 +186,32 @@ def crop(batch: int = 8, boxes: int = 1024, size: int = 256, reps: int = 5,
          (image, grouped, crop_size)),
         ("F.grid_sample (yardstick)", grid_sample, (image.permute(0, 3, 1, 2), grid)),
     ]
-    return timed_rows(routes, reps, dev, "float32")
+    return timed_rows(routes, reps, dev, dtype)
 
 
-def stage_inputs(batch: int, boxes: int, size: int, device, seed: int = 0):
-    """P2-P5 maps ([B, size/4 ... size/32, 256] float32) and [B N, 4] boxes."""
+def stage_inputs(batch: int, boxes: int, size: int, device, seed: int = 0,
+                 dtype: str = "float32"):
+    """P2-P5 maps ([B, size/4 ... size/32, 256] of ``dtype``) and [B N, 4]
+    float32 boxes."""
     rng = np.random.RandomState(seed)
     maps = [torch.from_numpy(rng.randn(batch, size // s, size // s, CHANNELS)
-                             .astype(np.float32)).to(device) for s in (4, 8, 16, 32)]
+                             .astype(np.float32)).to(device=device, dtype=COMPUTE_DTYPES[dtype])
+            for s in (4, 8, 16, 32)]
     return maps, torch.from_numpy(random_boxes(rng, (batch * boxes,))).to(device)
 
 
 def stage(batch: int = 32, boxes: int = 1000, size: int = 1024, reps: int = 5,
-          device=None) -> List[Dict[str, object]]:
+          device=None, dtype: str = "bfloat16") -> List[Dict[str, object]]:
     """The ``stage`` table: one row per piece of the second stage."""
     dev = resolve_device(device)
-    maps, flat = stage_inputs(batch, boxes, size, dev)
+    maps, flat = stage_inputs(batch, boxes, size, dev, dtype=dtype)
     idx = torch.arange(batch, dtype=torch.int32, device=dev).repeat_interleave(boxes)
     rng = np.random.RandomState(1)
     n = batch * boxes
-    x = torch.from_numpy(rng.randn(n, 7 * 7 * CHANNELS).astype(np.float32)).to(dev)
-    wmat = torch.from_numpy(rng.randn(7 * 7 * CHANNELS, 1024).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.randn(n, 7 * 7 * CHANNELS).astype(np.float32)).to(
+        dev, COMPUTE_DTYPES[dtype])
+    wmat = torch.from_numpy(rng.randn(7 * 7 * CHANNELS, 1024).astype(np.float32)).to(
+        dev, COMPUTE_DTYPES[dtype])
     pyramid = torch.cat([m.reshape(batch, -1, CHANNELS) for m in maps], 1).reshape(-1, CHANNELS)
     gidx = torch.from_numpy(rng.randint(0, pyramid.shape[0], (n * 49 * 4,))).to(dev)
     cut = boxes // 128 * 128
@@ -217,14 +228,15 @@ def stage(batch: int = 32, boxes: int = 1000, size: int = 1024, reps: int = 5,
     if cut:
         routes.append((f"crop_and_resize_grouped_mm (K5) on P4 {size // 16}², {cut} per image",
                        roi_ops.crop_and_resize_grouped_mm, (maps[2], p4_boxes, (7, 7))))
-    return timed_rows(routes, reps, dev, "float32")
+    return timed_rows(routes, reps, dev, dtype)
 
 
-def bwd_inputs(batch: int, boxes: int, size: int, device, seed: int = 0):
+def bwd_inputs(batch: int, boxes: int, size: int, device, seed: int = 0,
+               dtype: str = "float32"):
     """The ``bwd`` inputs of ``scripts/profile_window_bwd.py``: P2-P5 maps
-    ([B, size/4 ... size/32, 256] float32), ``B * boxes`` boxes clipped to
-    the image, sorted by image, and their FPN levels."""
-    maps, flat = stage_inputs(batch, boxes, size, device, seed)
+    ([B, size/4 ... size/32, 256] of ``dtype``), ``B * boxes`` boxes clipped
+    to the image, sorted by image, and their FPN levels."""
+    maps, flat = stage_inputs(batch, boxes, size, device, seed, dtype)
     flat = flat.clamp(max=1.0)
     idx = torch.arange(batch, dtype=torch.int32, device=flat.device).repeat_interleave(boxes)
     level = (roi_ops.assign_fpn_level(flat, (size, size)) - 2).clamp(0, 3)
@@ -253,24 +265,25 @@ def grid_sample_backward_args(maps, boxes, crop, g):
     n, (ch, cw) = boxes.shape[0], crop
     with torch.enable_grad():
         p2 = maps[0].permute(0, 3, 1, 2).contiguous().requires_grad_()
-        sampled = F.grid_sample(p2, box_grid(boxes, crop, b), mode="bilinear",
+        sampled = F.grid_sample(p2, box_grid(boxes, crop, b).to(p2.dtype), mode="bilinear",
                                 padding_mode="zeros", align_corners=True)
     gout = g.reshape(b, n // b * ch, cw, c).permute(0, 3, 1, 2).contiguous()
     return sampled, p2, gout
 
 
 def bwd(batch: int = 8, boxes: int = 200, size: int = 1024, reps: int = 5,
-        device=None) -> List[Dict[str, object]]:
+        device=None, dtype: str = "bfloat16") -> List[Dict[str, object]]:
     """The ``bwd`` table: per crop size, K3 alone, K1 + K3 through autograd,
     the plain backward and ``grid_sample``'s backward."""
     dev = resolve_device(device)
-    maps, flat, idx, level = bwd_inputs(batch, boxes, size, dev)
+    maps, flat, idx, level = bwd_inputs(batch, boxes, size, dev, dtype=dtype)
     shapes = [tuple(m.shape) for m in maps]
     rng = np.random.RandomState(1)
     routes = []
     for c in (7, 14):
         crop = (c, c)
-        g = torch.from_numpy(rng.randn(flat.shape[0], c, c, CHANNELS).astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.randn(flat.shape[0], c, c, CHANNELS).astype(np.float32)).to(
+            dev, COMPUTE_DTYPES[dtype])
         routes += [
             (f"roi_align_bwd (K3) {c}x{c}", roi_ops.roi_align_bwd,
              (g, shapes, flat, idx, level, crop)),
@@ -281,7 +294,7 @@ def bwd(batch: int = 8, boxes: int = 200, size: int = 1024, reps: int = 5,
             (f"grid_sample backward into P2 {c}x{c} (yardstick)", grid_sample_grad,
              grid_sample_backward_args(maps, flat, crop, g)),
         ]
-    return timed_rows(routes, reps, dev, "float32")
+    return timed_rows(routes, reps, dev, dtype)
 
 
 def window_origins(rng: np.random.RandomState, n: int, batch: int, size: int, sy: int,
@@ -351,12 +364,12 @@ def fwd_boxes(batch: int, count: int, size: int, device, seed: int = 0):
 
 
 def fwd(batch: int = 2, boxes: Optional[int] = None, size: int = 1024, reps: int = 5,
-        device=None, seed: int = 0) -> List[Dict[str, object]]:
+        device=None, seed: int = 0, dtype: str = "bfloat16") -> List[Dict[str, object]]:
     """The ``fwd`` table: per call of the model's (the inference path's two,
     or at batch 4 the train step's five), K1, its plain version and
     ``grid_sample`` over the call's first map for the same boxes."""
     dev = resolve_device(device)
-    maps, _ = stage_inputs(batch, 0, size, dev, seed)
+    maps, _ = stage_inputs(batch, 0, size, dev, seed, dtype)
     train = batch == 4
     count = boxes or (200 if train else 1000)
     flat, idx, level = fwd_boxes(batch, count, size, dev, seed)
@@ -378,8 +391,9 @@ def fwd(batch: int = 2, boxes: Optional[int] = None, size: int = 1024, reps: int
         routes += [(f"roi_align_fwd (K1) {label}", roi_ops.roi_align_fwd, args),
                    (f"multilevel_gather_plain {label}", roi_ops.multilevel_gather_plain, args),
                    (f"F.grid_sample {label.split(' over ')[0]}, first map (yardstick)",
-                    grid_sample, (m[0].permute(0, 3, 1, 2), box_grid(bx, (c, c), batch)))]
-    return timed_rows(routes, reps, dev, "float32")
+                    grid_sample, (m[0].permute(0, 3, 1, 2),
+                                  box_grid(bx, (c, c), batch).to(m[0].dtype)))]
+    return timed_rows(routes, reps, dev, dtype)
 
 
 def nms_inputs(batch: int, boxes: int, size: int, device, seed: int = 0, classes: int = 0):
@@ -542,6 +556,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
                    help="map (crop, window) or image (stage, bwd, nms, fwd) side")
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--seed", type=int, default=0, help="the boxes' seed (nms, fwd)")
+    p.add_argument("--dtype", default="bfloat16", choices=sorted(COMPUTE_DTYPES),
+                   help="the maps' dtype (crop, stage, bwd, fwd)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     p.add_argument("--trace", action="store_true",
                    help="print each route's device kernels from torch.profiler")
@@ -552,6 +568,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
                                 ("size", args.size)) if v is not None}
     if args.command in ("nms", "fwd"):
         kwargs["seed"] = args.seed
+    if args.command in ("crop", "stage", "bwd", "fwd"):
+        kwargs["dtype"] = args.dtype
     device = resolve_device(args.device)
     rows = fn(reps=args.reps, device=device, **kwargs)
     print_table(args.command, rows, device)

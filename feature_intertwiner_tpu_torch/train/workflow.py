@@ -284,9 +284,9 @@ def test_model(model, cfg, val_dataset, coco_api, epoch: int = 0, limit: Optiona
 
     ``val_dataset`` has ``image_ids``, ``load_image``, ``image_info`` (with
     each image's COCO ``id``) and ``get_source_class_id``. Detections are
-    cached in the run's folder and read back when the cache exists."""
-    if cfg.TEST.DTYPE not in ("", "float32"):
-        raise NotImplementedError(f"TEST.DTYPE {cfg.TEST.DTYPE}: only float32 is ported")
+    cached in the run's folder and read back when the cache exists. The
+    model evaluates in its own dtype (``InterNet.dtype``), as the JAX
+    ``test_model`` does; ``main.py`` re-types it for ``TEST.DTYPE``."""
     if cfg.TEST.SAVE_IM:
         raise NotImplementedError("TEST.SAVE_IM: the visualize module is not ported")
     folder = cfg.MISC.RESULT_FOLDER or "."

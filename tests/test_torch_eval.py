@@ -354,14 +354,26 @@ def test_test_model_multiscale_and_unported_options(evaluated):
         assert model.image_size == 128 and model.dev_roi.image_size == 128
     finally:
         cfg.TEST.MULTI_SCALE = []
-    for key, value in (("DTYPE", "bfloat16"), ("SAVE_IM", True)):
-        old = cfg.TEST[key]
-        cfg.TEST[key] = value
-        try:
-            with pytest.raises(NotImplementedError):
-                workflow.test_model(model, cfg, data, api, epoch=5)
-        finally:
-            cfg.TEST[key] = old
+    # TEST.DTYPE bfloat16: the model re-typed as main.py re-types it evaluates
+    # in bfloat16 from its float32 parameters, into a cache named for the dtype
+    seen = []
+    hook = model.classifier.register_forward_hook(lambda m, args, out: seen.append(args[0].dtype))
+    cfg.TEST.DTYPE, model.dtype = "bfloat16", torch.bfloat16
+    try:
+        stats = workflow.test_model(model, cfg, data, api, epoch=5, limit=2)
+        path = workflow.cache_path(cfg, 5, 2, False)
+        assert path.endswith("det_result_ep0005_n2_bfloat16.json") and os.path.exists(path)
+        assert stats.shape == (12,) and seen and set(seen) == {torch.bfloat16}
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+    finally:
+        cfg.TEST.DTYPE, model.dtype = "", torch.float32
+        hook.remove()
+    cfg.TEST.SAVE_IM = True
+    try:
+        with pytest.raises(NotImplementedError):
+            workflow.test_model(model, cfg, data, api, epoch=5)
+    finally:
+        cfg.TEST.SAVE_IM = False
 
 
 # --- the command line ---------------------------------------------------------------------

@@ -381,6 +381,19 @@ def _window_case(name):
         c = 66
         org = rng.randint(0, [b, h - sy + 1, (w - sx) // 8 + 1], (9, 3)).tolist()
         group = 4
+    elif "direct-one" in name:          # one channel a lane: C = 3, or a map off a channel pair
+        c = 3 if name.endswith("c3") else 8
+        sy, sx = (24, 24) if "big" in name else (2, 3)     # 576 pixels: staged were C even
+        h, w = 30, 40
+        org = rng.randint(0, [b, h - sy + 1, (w - sx) // 8 + 1], (7, 3)).tolist()
+        org[2] = [1, h - sy + 1, 0]                         # leaves the map
+        origins = T(np.array(org, np.int32))
+        n = b * h * w * c
+        flat = T(rng.randn(n + 1).astype(np.float32)).to(dtype)
+        img = (flat[1:] if name.endswith("odd") else flat[:n]).view(b, h, w, c)
+        vec = ws.window_vec(img)
+        assert vec == 1 and img.is_contiguous()
+        return img, origins, sy, sx, ws.window_plan(len(org), sy, sx, c, dtype, w, vec)
     else:                               # the plan's own: read directly, 66 channels for V = 2
         sy, sx = 2, 3
         c = 66 if name.endswith("66") else 8
@@ -401,7 +414,9 @@ def _window_case(name):
 
 @pytest.mark.parametrize("name", ["bf16-straddle", "fp32-straddle", "bf16-leavers", "bf16-repeats",
                                   "bf16-sx12", "fp32-sx12", "bf16-c66", "fp32-c66", "bf16-direct",
-                                  "fp32-direct", "bf16-direct66"])
+                                  "fp32-direct", "bf16-direct66", "bf16-direct-one-c3",
+                                  "fp32-direct-one-c3", "bf16-direct-one-big-c3",
+                                  "bf16-direct-one-odd", "fp32-direct-one-big-odd"])
 def test_window_kernel_model_matches_plain(name):
     """The window kernel walked block by block (:func:`_window_kernel_model`)
     equals the plain version bit for bit, NaN included, and writes every
@@ -409,7 +424,8 @@ def test_window_kernel_model_matches_plain(name):
     windows that leave the map among valid ones, repeated origins, sx 5 and
     12 over several pieces, C = 66 (V = 2, a ragged last chunk), N not a
     multiple of the group, float32 and bfloat16, and the plan's groups of
-    one, read directly."""
+    one, read directly; and one channel a lane (V = 1, read directly at
+    any window size) on C = 3 and on a map one channel off a pair."""
     img, origins, sy, sx, plan = _window_case(name)
     n = origins.shape[0]
     assert n % plan.group or plan.group == 1
@@ -482,13 +498,30 @@ def window_shared(plan, item):
 @pytest.mark.parametrize("offset, channels, vec", [
     (0, 256, 4), (4, 8, 4),            # 4-channel aligned
     (0, 6, 2), (0, 66, 2),             # C not a multiple of 4
-    (2, 256, 2), (6, 8, 2)])           # views 2 and 6 channels off a 4-channel boundary
+    (2, 256, 2), (6, 8, 2),            # views 2 and 6 channels off a 4-channel boundary
+    (0, 3, 1), (2, 5, 1),              # C odd
+    (1, 8, 1), (3, 256, 1)])           # views 1 and 3 channels off a channel pair
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_window_vec(offset, channels, vec, dtype):
     n = 2 * 3 * channels
     img = torch.zeros(n + offset, dtype=dtype)[offset:].view(1, 2, 3, channels)
-    assert img.is_contiguous() and img.data_ptr() % (2 * img.element_size()) == 0
+    paired = img.data_ptr() % (2 * img.element_size()) == 0
+    assert img.is_contiguous() and paired == (offset % 2 == 0)
     assert ws.window_vec(img) == vec
+
+
+@pytest.mark.parametrize("channels", [1, 3, 8, 257])
+def test_window_plan_one_channel_a_lane(channels):
+    """V = 1 (C odd, or a map off a channel pair) reads every window
+    directly, 32 channels a chunk, at any window size; the C entry takes
+    V = 1 only without staging."""
+    for sy, sx in [(1, 1), (8, 8), (24, 24), (64, 64)]:
+        for n in (1, 63, 100_000):
+            plan = ws.window_plan(n, sy, sx, channels, torch.bfloat16, 256, 1)
+            assert plan == ws.WindowPlan(1, 0, 1, ws.WINDOW_LANES,
+                                         -(-n // 16) * -(-channels // ws.WINDOW_LANES), 0)
+    source = (cuda_build.CSRC_DIR / "window_sum.cu").read_text()
+    assert "(staged && vec == 1)" in source and "launch_direct<T, 1>" in source
 
 
 def test_wrappers_run_plain_on_the_cpu_and_check_their_arguments():
@@ -507,8 +540,10 @@ def test_wrappers_run_plain_on_the_cpu_and_check_their_arguments():
     for fn in (ra.crop_and_resize_grouped, ra.crop_and_resize_grouped_mm):
         with pytest.raises(TypeError):
             fn(image.double(), boxes, (3, 3))
-        with pytest.raises(TypeError):
-            fn(image.bfloat16(), boxes, (3, 3))
+        # a bfloat16 map: the float32 crop of the widened map, rounded once
+        got = fn(image.bfloat16(), boxes, (3, 3))
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, fn(image.bfloat16().float(), boxes, (3, 3)).bfloat16())
         with pytest.raises(ValueError):
             fn(image, boxes.reshape(-1, 4), (3, 3))
         with pytest.raises(ValueError):
