@@ -12,6 +12,10 @@
 // of height H (the same along x over W and crop_w):
 //   step  = ((y2 - y1) * (H - 1)) / (crop_h - 1)      true division
 //   pos_i = y1 * (H - 1) + i * step                   (centre when crop is 1)
+// or, in K4's `xla` mode, as XLA compiles the JAX single-level
+// crop_and_resize under jit (the Dev big-set crop of a train step):
+//   ratio = f32(H - 1) * f32(1 / (crop_h - 1))        one folded constant
+//   pos_i = fma(i, (y2 - y1) * ratio, y1 * (H - 1))   one rounding
 //   lo, hi = floor(pos), ceil(pos) clamped to the map, f = pos - floor(pos)
 // K4: rl = tl + (bl - tl) * fy, rr = tr + (br - tr) * fy, out = (1 - fx) *
 //   rl + fx * rr, even where lo == hi; extrapolation_value where pos_y or
@@ -64,9 +68,13 @@ static_assert(sizeof(RowTaps<float>) == 32 && sizeof(RowTaps<float4>) == 32 &&
                   sizeof(Axis) == 16,
               "ops/roi_align.py::fwd_shared_bytes counts 32 and 16 bytes");
 
-// Sample position of sample i along one axis, rounded as K4 and K5 round it.
-__device__ __forceinline__ float sample_pos(float c0, float c1, int crop, int i, float dm1) {
+// Sample position of sample i along one axis, rounded as K4 and K5 round it
+// or, with `xla`, as the jitted XLA crop does; `ratio` is (dm1 * (1 / (crop
+// - 1))) in float32, which only that rounding reads.
+__device__ __forceinline__ float sample_pos(float c0, float c1, int crop, int i, float dm1,
+                                           float ratio, bool xla) {
   if (crop > 1) {
+    if (xla) return __fmaf_rn((float)i, __fmul_rn(c1 - c0, ratio), __fmul_rn(c0, dm1));
     const float step = __fdiv_rn(__fmul_rn(c1 - c0, dm1), (float)(crop - 1));
     return __fadd_rn(__fmul_rn(c0, dm1), __fmul_rn((float)i, step));
   }
@@ -119,7 +127,7 @@ template <typename T, bool kSeparable>
 __global__ void __launch_bounds__(kThreads)
 grouped_crop_kernel(const T* __restrict__ image, const float* __restrict__ boxes,
                     int total_rows, int nb, int h, int w, int cv, int crop_h, int crop_w,
-                    int rows_per_block, T extrap, T* __restrict__ out) {
+                    int rows_per_block, bool xla, T extrap, T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char staged[];
   RowTaps<T>* rows = reinterpret_cast<RowTaps<T>*>(staged);
   Axis* cols = reinterpret_cast<Axis*>(staged + rows_per_block * sizeof(RowTaps<T>));
@@ -128,6 +136,8 @@ grouped_crop_kernel(const T* __restrict__ image, const float* __restrict__ boxes
   const int box0 = first / crop_h;
   const int boxes_here = (first + count - 1) / crop_h - box0 + 1;
   const float hm1 = (float)h - 1.0f, wm1 = (float)w - 1.0f;
+  const float ratio_h = __fmul_rn(hm1, __frcp_rn((float)max(crop_h - 1, 1)));
+  const float ratio_w = __fmul_rn(wm1, __frcp_rn((float)max(crop_w - 1, 1)));
   const size_t map_row = (size_t)w * cv;
 
   // Stage each row's y taps, then each box's x taps.
@@ -135,8 +145,8 @@ grouped_crop_kernel(const T* __restrict__ image, const float* __restrict__ boxes
     if (e < count) {
       const int n = (first + e) / crop_h;
       const float* box = boxes + 4 * (size_t)n;
-      const Axis ty = axis_taps(sample_pos(box[0], box[2], crop_h, first + e - n * crop_h, hm1),
-                                hm1);
+      const Axis ty = axis_taps(
+          sample_pos(box[0], box[2], crop_h, first + e - n * crop_h, hm1, ratio_h, xla), hm1);
       const T* img = image + (size_t)(n / nb) * h * map_row;
       rows[e] = RowTaps<T>{img + ty.lo * map_row, img + ty.hi * map_row, ty.frac,
                            (n - box0) * crop_w, ty.valid};
@@ -144,7 +154,8 @@ grouped_crop_kernel(const T* __restrict__ image, const float* __restrict__ boxes
       const int u = e - count;
       const int m = u / crop_w;
       const float* box = boxes + 4 * ((size_t)box0 + m);
-      Axis tx = axis_taps(sample_pos(box[1], box[3], crop_w, u - m * crop_w, wm1), wm1);
+      Axis tx = axis_taps(sample_pos(box[1], box[3], crop_w, u - m * crop_w, wm1, ratio_w, xla),
+                          wm1);
       tx.lo *= cv;
       tx.hi *= cv;
       cols[u] = tx;
@@ -213,8 +224,9 @@ grouped_crop_kernel(const T* __restrict__ image, const float* __restrict__ boxes
 }
 
 template <bool kSeparable>
-int launch(const float* image, const float* boxes, int b, int nb, int h, int w, int c, int vec,
-           int crop_h, int crop_w, int rows_per_block, float extrap, float* out, void* stream) {
+int launch(const float* image, const float* boxes, int b, int nb, int h, int w, int c, bool xla,
+           int vec, int crop_h, int crop_w, int rows_per_block, float extrap, float* out,
+           void* stream) {
   if (b < 1 || nb < 0 || h < 1 || w < 1 || c < 1 || crop_h < 1 || crop_w < 1 ||
       rows_per_block < 1 || (vec != 1 && vec != 4) || (long long)w * c > INT_MAX) {
     return (int)cudaErrorInvalidValue;
@@ -236,12 +248,12 @@ int launch(const float* image, const float* boxes, int b, int nb, int h, int w, 
   if (vec == 4) {
     grouped_crop_kernel<float4, kSeparable><<<blocks, kThreads, (size_t)smem, st>>>(
         reinterpret_cast<const float4*>(image), boxes, (int)total_rows, nb, h, w, cv, crop_h,
-        crop_w, rows_per_block, make_float4(extrap, extrap, extrap, extrap),
+        crop_w, rows_per_block, xla, make_float4(extrap, extrap, extrap, extrap),
         reinterpret_cast<float4*>(out));
   } else {
     grouped_crop_kernel<float, kSeparable><<<blocks, kThreads, (size_t)smem, st>>>(
-        image, boxes, (int)total_rows, nb, h, w, cv, crop_h, crop_w, rows_per_block, extrap,
-        out);
+        image, boxes, (int)total_rows, nb, h, w, cv, crop_h, crop_w, rows_per_block, xla,
+        extrap, out);
   }
   return (int)cudaGetLastError();
 }
@@ -250,14 +262,17 @@ int launch(const float* image, const float* boxes, int b, int nb, int h, int w, 
 
 // image [b, h, w, c] and boxes [b, nb, 4] float32, contiguous, in device
 // memory; out [b, nb, crop_h, crop_w, c] float32. separable: K5 (its
-// extrapolation is 0) or K4. vec: floats read and written at a time, 1 or 4
+// extrapolation is 0) or K4. xla: sample positions rounded as the jitted
+// XLA crop rounds them, else as the Pallas kernels do (K5 takes 0). vec:
+// floats read and written at a time, 1 or 4
 // (4 needs c % 4 == 0 and image and out on 16-byte boundaries).
 // rows_per_block: the plan of ops/roi_align.py::fwd_plan (its staged taps
 // within kSharedLimit). Launches on `stream`, returns the launch's error.
 extern "C" int crop_and_resize_grouped(const float* image, const float* boxes, int b, int nb,
-                                       int h, int w, int c, int separable, int vec, int crop_h,
-                                       int crop_w, int rows_per_block, float extrap, float* out,
-                                       void* stream) {
-  return (separable ? launch<true> : launch<false>)(image, boxes, b, nb, h, w, c, vec, crop_h,
-                                                    crop_w, rows_per_block, extrap, out, stream);
+                                       int h, int w, int c, int separable, int xla, int vec,
+                                       int crop_h, int crop_w, int rows_per_block, float extrap,
+                                       float* out, void* stream) {
+  return (separable ? launch<true> : launch<false>)(image, boxes, b, nb, h, w, c, xla != 0, vec,
+                                                    crop_h, crop_w, rows_per_block, extrap, out,
+                                                    stream);
 }

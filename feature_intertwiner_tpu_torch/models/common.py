@@ -5,8 +5,9 @@ The modules are NCHW; the model keeps its activations in
 ``torch.channels_last`` memory, so an NHWC view of a map is free.
 
 Compute dtype, as flax's ``dtype``/``param_dtype``: parameters stay
-float32, and :class:`Conv2d`, :class:`ConvTranspose2d` and :class:`Linear`
-cast their weight and bias to their input's dtype (bfloat16 in a bfloat16
+float32, and :class:`Conv1d`, :class:`Conv2d`, :class:`ConvTranspose2d` and
+:class:`Linear` (and their SAME-padded kinds) cast their weight and bias to
+their input's dtype (bfloat16 in a bfloat16
 model) and give a result in it. ``nn.BatchNorm2d`` takes a bfloat16 input
 with its float32 affine parameters and running statistics, computes in
 float32 and gives bfloat16, as flax's ``BatchNorm(dtype=bfloat16)`` does.
@@ -55,6 +56,35 @@ class ConvTranspose2d(nn.ConvTranspose2d):
                                   self.groups, self.dilation)
 
 
+class SameConvTranspose2d(ConvTranspose2d):
+    """flax ``ConvTranspose(kernel, strides, padding='SAME')``. flax pads the
+    stride-dilated input ``(a, b)`` = :func:`same_transpose_padding`, which
+    for 3×3 at stride 2 is (2, 1); torch pads ``k - 1 - padding`` on both
+    sides and ``output_padding`` more after. So ``padding = k - 1 - a``, and
+    the output loses its last ``a - b`` rows and columns (or gains ``b - a``
+    of output padding). The weight holds flax's kernel spatially flipped
+    (``utils/convert_weights.py``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int):
+        a, b = same_transpose_padding(kernel, stride)
+        super().__init__(in_channels, out_channels, kernel, stride, padding=kernel - 1 - a,
+                         output_padding=max(b - a, 0))
+        self.crop = max(a - b, 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x)
+        if self.crop:
+            y = y[..., :y.shape[-2] - self.crop, :y.shape[-1] - self.crop]
+        return y
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` computing in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` computing in its input's dtype."""
 
@@ -71,6 +101,26 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     out = -(-size // stride)
     total = max((out - 1) * stride + kernel - size, 0)
     return total // 2, total - total // 2
+
+
+class SameConv2d(Conv2d):
+    """A square-kernel :class:`Conv2d` with flax's ``padding='SAME'`` at any
+    stride: the input is padded as :func:`same_padding` says, then
+    convolved unpadded."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, s = self.kernel_size[0], self.stride[0]
+        top, bottom = same_padding(x.shape[-2], k, s)
+        left, right = same_padding(x.shape[-1], k, s)
+        return super().forward(F.pad(x, (left, right, top, bottom)))
+
+
+def same_transpose_padding(kernel: int, stride: int) -> Tuple[int, int]:
+    """(before, after) padding of the stride-dilated input of a flax/lax
+    ``ConvTranspose`` with ``padding='SAME'`` along one axis."""
+    total = kernel + stride - 2
+    before = kernel - 1 if stride > kernel - 1 else -(-total // 2)
+    return before, total - before
 
 
 class SamePad2d(nn.Module):
@@ -98,7 +148,8 @@ TRUNC_STD = 0.87962566103423978
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights as the JAX package initialises them:
-    Xavier-uniform convolutions, Xavier-normal transposed convolutions
+    Xavier-uniform convolutions (1-D and 2-D), Xavier-normal transposed
+    convolutions
     (flax ``xavier_normal``: a normal truncated at two of its standard
     deviations, of variance 2 / (fan_in + fan_out)), the delta kernel of
     the JAX ``_identity_conv_init`` (zero but the centre tap's [out, in]
@@ -107,7 +158,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     statistics (0, 1)). The generator is a CPU generator; initialise before
     moving the model."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
             # fan_in + fan_out, the same for a conv and its transpose
             fans = (w.shape[0] + w.shape[1]) * w[0, 0].numel()

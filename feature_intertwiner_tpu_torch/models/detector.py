@@ -39,6 +39,7 @@ from ..train import losses as L
 from .fpn import FPN
 from .heads import BoxHead, MaskHead
 from .intertwiner import Dev
+from .ot import OptTrans1D
 from .resnet import ResNet
 from .rpn import RPNHead, run_rpn_over_pyramid
 
@@ -88,6 +89,8 @@ class InterNet(nn.Module):
         dev_baseline: bool = False,
         dev_big_supervise: bool = False,
         dev_big_feat_detach: bool = True,
+        dev_ot_one_dim_form: str = "conv",
+        fpn_ot_loss: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -118,7 +121,7 @@ class InterNet(nn.Module):
         self.use_mini_mask = use_mini_mask
         self.strict_quirks = strict_quirks
 
-        self.fpn = FPN(ResNet(backbone), fpn_channels)
+        self.fpn = FPN(ResNet(backbone), fpn_channels, fpn_ot_loss=fpn_ot_loss)
         self.rpn = RPNHead(len(anchor_ratios), anchor_stride, fpn_channels)
         self.dev_roi = Dev(
             channels=fpn_channels, image_size=image_size,
@@ -136,6 +139,10 @@ class InterNet(nn.Module):
             big_feat_detach=dev_big_feat_detach)
         self.classifier = BoxHead(num_classes, pool_size, fpn_channels)
         self.mask = MaskHead(num_classes, fpn_channels)
+        # the OT meta loss's generator and critic, run by the train step
+        # through meta_ot
+        self.ot_loss = (OptTrans1D(1024, dev_ot_one_dim_form)
+                        if dev_switch and dev_loss_choice == "ot" else None)
 
         self._anchor_spec = (tuple(anchor_scales), tuple(anchor_ratios), tuple(strides),
                              anchor_stride)
@@ -205,8 +212,16 @@ class InterNet(nn.Module):
             dev_baseline=cfg.DEV.BASELINE,
             dev_big_supervise=cfg.DEV.BIG_SUPERVISE,
             dev_big_feat_detach=cfg.DEV.BIG_FEAT_DETACH,
+            dev_ot_one_dim_form=cfg.DEV.OT_ONE_DIM_FORM,
+            fpn_ot_loss=cfg.TRAIN.FPN_OT_LOSS,
             dtype=dtype,
         )
+
+    def meta_ot(self, small: torch.Tensor, big: torch.Tensor,
+                row_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The OT meta loss between the small and big per-class 1024-d sets
+        [K, 1024] (float32), computed in the model's dtype: a scalar."""
+        return self.ot_loss(small.to(self.dtype), big.to(self.dtype), row_weights)
 
     def _propose(self, rpn_probs, rpn_deltas, count: int,
                  image_size: Optional[int] = None) -> torch.Tensor:
@@ -281,12 +296,13 @@ class InterNet(nn.Module):
 
         The targets' random subsets come from ``generator``, or from
         ``draws`` ({"rpn": [B, 2, A], "det": [B, 2, P]} uniform scores).
-        Returns the five losses, ``positive_rois`` (sampled positives in the
-        batch) and, with the intertwiner on, ``intertwiner`` (the Dev
-        statistics, see :meth:`Dev.forward_train`); the buffer update and
-        the meta loss are the train step's (``train/step.py``)."""
+        Returns the five losses, ``fpn_ot_loss`` [B, 3] (zeros without
+        ``fpn_ot_loss``), ``positive_rois`` (sampled positives in the batch)
+        and, with the intertwiner on, ``intertwiner`` (the Dev statistics,
+        see :meth:`Dev.forward_train`); the buffer update and the meta loss
+        are the train step's (``train/step.py``)."""
         b = images.shape[0]
-        pyramid = self.fpn(images.to(self.dtype).permute(0, 3, 1, 2))
+        pyramid, fpn_ot = self.fpn.forward_train(images.to(self.dtype).permute(0, 3, 1, 2))
         rpn_logits, rpn_probs, rpn_deltas = run_rpn_over_pyramid(self.rpn, pyramid)
         count = self.post_nms_inference if self.strict_quirks else self.post_nms_train
         draws = draws or {}
@@ -317,6 +333,7 @@ class InterNet(nn.Module):
                 det_t.deltas, det_t.class_ids, bbox.reshape(b, r, k, 4)),
             "mrcnn_mask_loss": L.mrcnn_mask_loss(
                 det_t.masks, det_t.class_ids, masks.reshape(b, r, mh, mw, k)),
+            "fpn_ot_loss": fpn_ot,
             "positive_rois": det_t.pos_mask.sum(),
         }
         if stats is not None:

@@ -14,13 +14,14 @@ numbers are the same.
 
 In training (:meth:`Dev.forward_train`) the critic (``feat_extract``) turns
 every RoI's 14² pooling into a 1024-d vector (sigmoid for the L1/L2 meta
-loss, softmax for KL). Per meta level l in (2, 3, 4) the small set is the
-RoIs assigned to l, and the reliable ("big") set the RoIs of the levels
-above it, pooled 14² from the raw map P_l by a single-level
-``crop_and_resize`` and run through the critic; both are reduced to
-per-class means (:func:`class_mean`). A level without small RoIs has its big
-statistics zeroed. The big side is computed without gradient
-(``BIG_FEAT_DETACH``).
+loss, softmax for KL, none for OT). Per meta level l in (2, 3, 4) the small
+set is the RoIs assigned to l, and the reliable ("big") set the RoIs of the
+levels above it, pooled 14² from the raw map P_l by the single-level
+grouped crop (K4) with the sample positions of the jitted JAX
+``crop_and_resize`` (``positions="xla"``) and run through the critic; both
+are reduced to per-class means (:func:`class_mean`). A level without small
+RoIs has its big statistics zeroed. The big side is computed without
+gradient (``BIG_FEAT_DETACH``).
 
 The make-up block, the poolings and the critic run in the maps' dtype
 (bfloat16 in a bfloat16 model); the critic's vectors go to float32 before
@@ -39,9 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.roi_align import (assign_fpn_level, crop_and_resize,
+from ..ops.roi_align import (assign_fpn_level, crop_and_resize_grouped,
                              multilevel_crop_and_resize)
-from .common import DEV_BN_EPS, Conv2d, batch_norm, same_padding
+from .common import DEV_BN_EPS, Conv2d, SameConv2d, batch_norm
 
 META_LEVELS = (2, 3, 4)
 
@@ -96,7 +97,7 @@ class Critic(nn.Sequential):
     def __init__(self, channels: int = 256, feat_pool_size: int = 14):
         k = feat_pool_size // 2
         super().__init__(
-            Conv2d(channels, 512, 3, stride=2),
+            SameConv2d(channels, 512, 3, stride=2),
             batch_norm(512, eps=DEV_BN_EPS, momentum=0.1),
             nn.ReLU(inplace=True),
             Conv2d(512, 1024, k),
@@ -108,10 +109,7 @@ class Critic(nn.Sequential):
         )
 
     def forward(self, pooled):
-        x = pooled.permute(0, 3, 1, 2)
-        top, bottom = same_padding(x.shape[-2], 3, 2)
-        left, right = same_padding(x.shape[-1], 3, 2)
-        x = super().forward(F.pad(x, (left, right, top, bottom)))
+        x = super().forward(pooled.permute(0, 3, 1, 2))
         return x.reshape(x.shape[0], 1024)
 
 
@@ -183,12 +181,14 @@ class Dev(nn.Module):
             assign_base=self.assign_base)
 
     def last_op(self, x: torch.Tensor) -> torch.Tensor:
-        """The critic's last op for the meta loss."""
+        """The critic's last op for the meta loss (none for OT)."""
         if self.loss_choice in ("l1", "l2"):
             return torch.sigmoid(x)
         if self.loss_choice == "kl":
             return torch.softmax(x, dim=1)
-        raise NotImplementedError(f"DEV.LOSS_CHOICE {self.loss_choice}")
+        if self.loss_choice == "ot":
+            return x
+        raise ValueError(f"DEV.LOSS_CHOICE {self.loss_choice}")
 
     def forward_train(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
                       roi_gt: torch.Tensor, pool_size: int = 7,
@@ -210,7 +210,6 @@ class Dev(nn.Module):
                     raise NotImplementedError(f"{name} in training")
         b, r, _ = rois.shape
         flat = rois.reshape(-1, 4)
-        box_idx = torch.arange(b, dtype=torch.int32, device=rois.device).repeat_interleave(r)
         maps = self.pooling_maps(feats)
         pooled_cls = self.pool(maps, rois, pool_size)
         pooled_mask = self.pool(maps, rois, mask_pool_size)
@@ -230,7 +229,9 @@ class Dev(nn.Module):
             stats["small_cnt"].append(cnt)
             with torch.no_grad():
                 raw = feats[level_id - 2].permute(0, 2, 3, 1).contiguous()
-                pooled_big = crop_and_resize(raw, flat, box_idx, (self.feat_pool_size,) * 2)
+                pooled_big = crop_and_resize_grouped(
+                    raw, rois.contiguous(), (self.feat_pool_size,) * 2, positions="xla")
+                pooled_big = pooled_big.reshape(b * r, *pooled_big.shape[2:])
                 big_act = self.last_op(self.feat_extract(pooled_big).float())
                 feat, cnt = class_mean(big_act, flat_gt, big_mask(level_id, lvl), k)
                 has_small = small.any().float()

@@ -665,16 +665,53 @@ def crop_and_resize(
                      extrapolation_value)
 
 
+# How the single-level crops round their sample positions: as the Pallas
+# kernels K4 and K5 do ("pallas", K4's default) or as XLA compiles the JAX
+# ``crop_and_resize`` and ``crop_and_resize_separable`` ("xla": the Dev
+# big-set crop and the mask targets of a jitted train step)
+POSITIONS = ("pallas", "xla")
+
+
+@functools.lru_cache(maxsize=None)
+def xla_ratio(dim: int, crop: int) -> float:
+    """float32 ``(dim-1) * (1 / (crop-1))``: XLA turns the division by the
+    constant ``crop-1`` into a multiply by its reciprocal and folds it with
+    ``dim-1`` into one constant."""
+    one, div = torch.tensor(1.0), torch.tensor(float(max(crop - 1, 1)))
+    return float(torch.tensor(float(dim - 1)) * (one / div))
+
+
+def _single_level_positions(c0: torch.Tensor, c1: torch.Tensor, crop: int, dim: int,
+                            positions: str) -> torch.Tensor:
+    """[...] box starts and ends on one map axis of extent ``dim`` ->
+    [..., crop] sample positions of the single-level crops. ``positions``
+    "pallas" rounds as the single-level Pallas kernels compute them: ``step
+    = ((c1 - c0)(dim-1)) / (crop-1)`` by a true division (a divisor on the
+    tensors' device, since PyTorch multiplies by the reciprocal of a host
+    scalar on the card), then ``c0 (dim-1) + i step`` without a fused
+    multiply-add. "xla" rounds as XLA compiles the JAX ``crop_and_resize``
+    and ``crop_and_resize_separable``: ``step = (c1 - c0) ratio``
+    (:func:`xla_ratio`), then ``i step + c0 (dim-1)`` as one fused
+    multiply-add. A crop of 1 takes the box centre."""
+    if positions not in POSITIONS:
+        raise ValueError(f"positions must be one of {POSITIONS}, got {positions!r}")
+    dm1 = float(dim - 1)
+    if crop == 1:
+        return ((0.5 * (c0 + c1)) * dm1)[..., None]
+    i = torch.arange(crop, dtype=torch.float32, device=c0.device)
+    if positions == "xla":
+        step = (c1 - c0) * xla_ratio(dim, crop)
+        return _fma(i, step[..., None], (c0 * dm1)[..., None])
+    step = ((c1 - c0) * dm1) / c0.new_tensor(float(crop - 1))
+    return (c0 * dm1)[..., None] + i * step[..., None]
+
+
 def _interp_matrix(c0: torch.Tensor, c1: torch.Tensor, crop: int, dim: int) -> torch.Tensor:
     """[N] starts and ends -> [N, crop, dim] two-tap interpolation rows,
-    zero for samples outside ``[0, dim-1]`` (JAX ``_interp_matrix``)."""
+    zero for samples outside ``[0, dim-1]`` (JAX ``_interp_matrix``, its
+    sample positions rounded as XLA compiles it)."""
     d = float(dim)
-    samples = torch.arange(crop, dtype=torch.float32, device=c0.device)
-    if crop > 1:
-        step = (c1 - c0) * (d - 1.0) / (crop - 1)
-        pos = (c0 * (d - 1.0))[:, None] + samples[None, :] * step[:, None]
-    else:
-        pos = (0.5 * (c0 + c1) * (d - 1.0))[:, None] + samples[None, :] * 0.0
+    pos = _single_level_positions(c0, c1, crop, dim, "xla")
     valid = (pos >= 0.0) & (pos <= d - 1.0)
     lo = torch.floor(pos)
     frac = pos - lo
@@ -703,20 +740,13 @@ def crop_and_resize_separable(
 
 
 # --- single-level crop_and_resize with boxes grouped per image (K4, K5) --------------
-def _grouped_axis(c0: torch.Tensor, c1: torch.Tensor, crop: int, dim: int):
+def _grouped_axis(c0: torch.Tensor, c1: torch.Tensor, crop: int, dim: int,
+                  positions: str = "pallas"):
     """[B, NB] box starts and ends on one axis -> tap indices ``lo``, ``hi``
-    (int64), ``frac`` and ``valid``, each [B, NB, crop], rounded as the
-    single-level Pallas kernels compute them: ``step = ((c1 - c0)(dim-1)) /
-    (crop-1)`` by a true division (a divisor on the tensors' device, since
-    PyTorch multiplies by the reciprocal of a host scalar on the card), then
-    ``c0 (dim-1) + i step`` without a fused multiply-add."""
+    (int64), ``frac`` and ``valid``, each [B, NB, crop], at the sample
+    positions :func:`_single_level_positions` rounds as ``positions`` says."""
     dm1 = float(dim - 1)
-    if crop > 1:
-        step = ((c1 - c0) * dm1) / c0.new_tensor(float(crop - 1))
-        i = torch.arange(crop, dtype=torch.float32, device=c0.device)
-        pos = (c0 * dm1)[..., None] + i * step[..., None]
-    else:
-        pos = ((0.5 * (c0 + c1)) * dm1)[..., None]
+    pos = _single_level_positions(c0, c1, crop, dim, positions)
     valid = (pos >= 0.0) & (pos <= dm1)
     lo = torch.floor(pos)
     frac = pos - lo
@@ -725,14 +755,15 @@ def _grouped_axis(c0: torch.Tensor, c1: torch.Tensor, crop: int, dim: int):
     return lo_i, hi_i, frac, valid
 
 
-def _grouped_taps(image: torch.Tensor, boxes: torch.Tensor, crop_size):
+def _grouped_taps(image: torch.Tensor, boxes: torch.Tensor, crop_size,
+                  positions: str = "pallas"):
     """What both grouped crops read: ``gather(yi, xi)`` -> [B, NB, ch, cw, C]
     pixels of each box's image, and the per-axis taps of
     :func:`_grouped_axis` broadcast to ``[B, NB, ch, cw, 1]``."""
     b, h, w, c = image.shape
     ch, cw = crop_size
-    ty, by, fy, vy = _grouped_axis(boxes[..., 0], boxes[..., 2], ch, h)
-    lx, rx, fx, vx = _grouped_axis(boxes[..., 1], boxes[..., 3], cw, w)
+    ty, by, fy, vy = _grouped_axis(boxes[..., 0], boxes[..., 2], ch, h, positions)
+    lx, rx, fx, vx = _grouped_axis(boxes[..., 1], boxes[..., 3], cw, w, positions)
     flat = image.reshape(-1, c)
     base = (torch.arange(b, device=image.device) * (h * w))[:, None, None, None, None]
 
@@ -751,15 +782,18 @@ def _grouped_taps(image: torch.Tensor, boxes: torch.Tensor, crop_size):
 
 def crop_and_resize_grouped_plain(image: torch.Tensor, boxes: torch.Tensor,
                                   crop_size: Tuple[int, int],
-                                  extrapolation_value: float = 0.0) -> torch.Tensor:
-    """Plain version of the K4 kernel: per sample row the y-lerp of the two
-    tap rows, ``t + (b - t) fy``, then ``(1 - fx) r_l + fx r_r``;
+                                  extrapolation_value: float = 0.0,
+                                  positions: str = "pallas") -> torch.Tensor:
+    """Plain version of the K4 kernel: sample positions rounded as
+    ``positions`` says (:func:`_grouped_axis`); per sample row the y-lerp
+    of the two tap rows, ``t + (b - t) fy``, then ``(1 - fx) r_l + fx r_r``;
     ``extrapolation_value`` where the sample lies outside the map. A
     bfloat16 image is widened and the crops rounded once to bfloat16."""
     if image.dtype == torch.bfloat16:
         return crop_and_resize_grouped_plain(image.float(), boxes, crop_size,
-                                             extrapolation_value).to(image.dtype)
-    gather, (ty, by, fy, vy), (lx, rx, fx, vx) = _grouped_taps(image, boxes, crop_size)
+                                             extrapolation_value, positions).to(image.dtype)
+    gather, (ty, by, fy, vy), (lx, rx, fx, vx) = _grouped_taps(image, boxes, crop_size,
+                                                               positions)
     tl, tr, bl, br = gather(ty, lx), gather(ty, rx), gather(by, lx), gather(by, rx)
     rl = tl + (bl - tl) * fy
     rr = tr + (br - tr) * fy
@@ -807,16 +841,17 @@ def _grouped_library() -> ctypes.CDLL:
     lib = cuda_build.load("crop_and_resize")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.crop_and_resize_grouped.restype = i32
-    lib.crop_and_resize_grouped.argtypes = [ptr, ptr] + [i32] * 10 + [ctypes.c_float, ptr, ptr]
+    lib.crop_and_resize_grouped.argtypes = [ptr, ptr] + [i32] * 11 + [ctypes.c_float, ptr, ptr]
     return lib
 
 
 def _launch_grouped(name: str, image: torch.Tensor, boxes: torch.Tensor, crop_size,
-                    extrapolation_value: float) -> torch.Tensor:
+                    extrapolation_value: float, positions: str = "pallas") -> torch.Tensor:
     """Launch ``csrc/crop_and_resize.cu`` on the current stream as K4
     (``crop_and_resize_grouped``) or K5 (``crop_and_resize_grouped_mm``,
-    extrapolation 0): [B, NB, ch, cw, C] float32 crops. A block takes the
-    :func:`fwd_plan` rows of K1: the kernel stages its taps as K1 does."""
+    extrapolation 0, "pallas" positions): [B, NB, ch, cw, C] float32 crops.
+    A block takes the :func:`fwd_plan` rows of K1: the kernel stages its
+    taps as K1 does."""
     b, h, w, c = image.shape
     nb = boxes.shape[1]
     out = torch.empty((b, nb, *crop_size, c), dtype=torch.float32, device=image.device)
@@ -826,7 +861,8 @@ def _launch_grouped(name: str, image: torch.Tensor, boxes: torch.Tensor, crop_si
         stream = torch.cuda.current_stream(image.device).cuda_stream
         err = _grouped_library().crop_and_resize_grouped(
             image.data_ptr(), boxes.data_ptr(), b, nb, h, w, c,
-            int(name == "crop_and_resize_grouped_mm"), vec, *crop_size, rows,
+            int(name == "crop_and_resize_grouped_mm"), int(positions == "xla"), vec,
+            *crop_size, rows,
             extrapolation_value, out.data_ptr(), stream)
     cuda_build.check(err, name)
     if nb > 0:  # the C entry launches nothing for no boxes
@@ -836,11 +872,15 @@ def _launch_grouped(name: str, image: torch.Tensor, boxes: torch.Tensor, crop_si
 
 def crop_and_resize_grouped(image: torch.Tensor, boxes: torch.Tensor,
                             crop_size: Tuple[int, int],
-                            extrapolation_value: float = 0.0) -> torch.Tensor:
+                            extrapolation_value: float = 0.0,
+                            positions: str = "pallas") -> torch.Tensor:
     """TF ``crop_and_resize`` of boxes grouped per image: image [B, H, W, C]
     float32 or bfloat16, boxes [B, NB, 4] normalised -> [B, NB, ch, cw, C]
     in the image's dtype, any ``extrapolation_value``, any NB and C (a
-    bfloat16 image is widened once and the crops rounded once).
+    bfloat16 image is widened once and the crops rounded once). The sample
+    positions are rounded as the Pallas kernel rounds them, or with
+    ``positions="xla"`` as the jitted JAX ``crop_and_resize`` does
+    (:func:`_grouped_axis`).
 
     Kernel wrapper: on CUDA tensors it launches ``csrc/crop_and_resize.cu``
     (which replaces ``feature_intertwiner_tpu/ops/roi_align.py::
@@ -848,14 +888,16 @@ def crop_and_resize_grouped(image: torch.Tensor, boxes: torch.Tensor,
     it runs :func:`crop_and_resize_grouped_plain`. Each launch adds one to
     ``cuda_build.launches["crop_and_resize_grouped"]``."""
     _check_grouped("crop_and_resize_grouped", image, boxes)
+    if positions not in POSITIONS:
+        raise ValueError(f"positions must be one of {POSITIONS}, got {positions!r}")
     crop = tuple(int(v) for v in crop_size)
     if image.dtype != torch.float32:
-        return crop_and_resize_grouped(image.float(), boxes, crop,
-                                       extrapolation_value).to(image.dtype)
+        return crop_and_resize_grouped(image.float(), boxes, crop, extrapolation_value,
+                                       positions).to(image.dtype)
     if image.device.type == "cpu":
-        return crop_and_resize_grouped_plain(image, boxes, crop, extrapolation_value)
+        return crop_and_resize_grouped_plain(image, boxes, crop, extrapolation_value, positions)
     return _launch_grouped("crop_and_resize_grouped", image, boxes, crop,
-                           float(extrapolation_value))
+                           float(extrapolation_value), positions)
 
 
 def mm_vector_width(image: torch.Tensor) -> int:

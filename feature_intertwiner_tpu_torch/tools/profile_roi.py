@@ -50,9 +50,11 @@ P2-P5 of a ``--size``² image (default 1024), 256 channels. At batch
 ``--batch`` (default 2; 8 is the evaluation's) the inference path's two
 calls: 7² on ``--boxes`` proposals per image (default 1000) and 14² on 100
 detections per image (or ``--boxes``, where fewer). At ``--batch 4`` the
-train step's five: 7² and 14² on ``--boxes`` RoIs per image (default 200)
-over P2-P5, and a 14² crop of every RoI on each of P2, P3 and P4 alone (the
-big-set crops). The boxes are clustered as ``nms``'s proposals, from
+train step's: K1's two, 7² and 14² on ``--boxes`` RoIs per image (default
+200) over P2-P5, and the three big-set crops, a 14² crop of every RoI on
+each of P2, P3 and P4 alone, which the train step runs through K4
+(``crop_and_resize_grouped`` with the jitted JAX crop's sample positions)
+beside its plain version and ``F.grid_sample``. The boxes are clustered as ``nms``'s proposals, from
 ``--seed``, each on the level ``assign_fpn_level`` gives it.
 
 ``crop``, ``stage``, ``bwd`` and ``fwd`` run ``--dtype`` maps (and
@@ -366,26 +368,35 @@ def fwd_boxes(batch: int, count: int, size: int, device, seed: int = 0):
 def fwd(batch: int = 2, boxes: Optional[int] = None, size: int = 1024, reps: int = 5,
         device=None, seed: int = 0, dtype: str = "bfloat16") -> List[Dict[str, object]]:
     """The ``fwd`` table: per call of the model's (the inference path's two,
-    or at batch 4 the train step's five), K1, its plain version and
-    ``grid_sample`` over the call's first map for the same boxes."""
+    or at batch 4 the train step's two and its three big-set crops), K1 (K4
+    for a big-set crop), its plain version and ``grid_sample`` over the
+    call's first map for the same boxes."""
     dev = resolve_device(device)
     maps, _ = stage_inputs(batch, 0, size, dev, seed, dtype)
     train = batch == 4
     count = boxes or (200 if train else 1000)
     flat, idx, level = fwd_boxes(batch, count, size, dev, seed)
     n = flat.shape[0]
+    grid_sample = functools.partial(F.grid_sample, mode="bilinear", padding_mode="zeros",
+                                    align_corners=True)
+    routes = []
     if train:
-        zero = torch.zeros_like(level)
         calls = [(f"{c}x{c} on {n} RoIs over P2-P5", maps, flat, idx, level, c) for c in (7, 14)]
-        calls += [(f"14x14 on {n} RoIs, P{p} alone", [maps[p - 2]], flat, idx, zero, 14)
-                  for p in (2, 3, 4)]
+        grouped = flat.reshape(batch, count, 4)
+        k4, k4_plain = (functools.partial(fn, crop_size=(14, 14), positions="xla") for fn in (
+            roi_ops.crop_and_resize_grouped, roi_ops.crop_and_resize_grouped_plain))
+        for p in (2, 3, 4):
+            label = f"14x14 on {n} RoIs, P{p} alone (big set)"
+            routes += [(f"crop_and_resize_grouped (K4) {label}", k4, (maps[p - 2], grouped)),
+                       (f"crop_and_resize_grouped_plain {label}", k4_plain,
+                        (maps[p - 2], grouped)),
+                       (f"F.grid_sample {label} (yardstick)", grid_sample,
+                        (maps[p - 2].permute(0, 3, 1, 2),
+                         box_grid(flat, (14, 14), batch).to(maps[0].dtype)))]
     else:
         dets = fwd_boxes(batch, min(100, count), size, dev, seed + 1)
         calls = [(f"7x7 on {n} proposals over P2-P5", maps, flat, idx, level, 7),
                  (f"14x14 on {dets[0].shape[0]} detections over P2-P5", maps, *dets, 14)]
-    grid_sample = functools.partial(F.grid_sample, mode="bilinear", padding_mode="zeros",
-                                    align_corners=True)
-    routes = []
     for label, m, bx, bi, lvl, c in calls:
         args = (m, bx, bi, lvl, (c, c))
         routes += [(f"roi_align_fwd (K1) {label}", roi_ops.roi_align_fwd, args),

@@ -6,7 +6,8 @@ big-object features is explicit state in :class:`TrainState`, beside the
 model and the optimizer, and is checkpointed with them.
 
 Loss assembly, as there: ``sum(five losses) + meta_gate · LOSS_FAC · meta
-+ BIG_LOSS_FAC · mean(big) (+ FPN OT, not ported)``. The meta loss is
++ BIG_LOSS_FAC · mean(big) + FPN_OT_LOSS_FAC · mean(fpn_ot)`` (the last
+with ``TRAIN.FPN_OT_LOSS``). The meta loss is
 clamped at 0 when negative; ``meta_gate`` (0 before
 ``EFFECT_AFER_EP_PERCENT`` of epoch 1) gates its gradient, not the buffer
 update; a step with no small-RoI statistics computes no meta loss and
@@ -19,7 +20,7 @@ gradients are clipped to their global norm, and SGD updates in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -50,11 +51,14 @@ def intertwiner_meta(
     buffer: torch.Tensor,
     buffer_cnt: torch.Tensor,
     stats: Dict[str, torch.Tensor],
+    meta_ot_fn: Optional[Callable[..., torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The buffer update and the meta loss: (loss, new buffer, new counts).
 
-    ``cfg_dev``: buffer_size, loss_choice ('l1' | 'l2' | 'kl') and
+    ``cfg_dev``: buffer_size, loss_choice ('l1' | 'l2' | 'kl' | 'ot') and
     inst_loss. ``stats``: the Dev statistics (``Dev.forward_train``).
+    ``meta_ot_fn(small_rows, big_rows, row_weights)`` computes the 'ot'
+    loss (``InterNet.meta_ot``), with no normalising denominator.
     ``BUFFER_SIZE`` 1 keeps the running mean of every step's big
     statistics; a larger buffer is a FIFO of the last steps."""
     buffer_size = cfg_dev["buffer_size"]
@@ -103,8 +107,10 @@ def intertwiner_meta(
     elif loss_choice == "kl":
         kl = big_rows * (torch.log(big_rows + EPS) - torch.log(small_rows + EPS))
         loss = (kl * wm).sum() / denom
+    elif loss_choice == "ot":
+        loss = meta_ot_fn(small_rows, big_rows, w)
     else:
-        raise NotImplementedError(f"DEV.LOSS_CHOICE {loss_choice}")
+        raise ValueError(f"DEV.LOSS_CHOICE {loss_choice}")
     loss = loss * has_small
     loss = torch.where(loss < 0, loss.new_zeros(()), loss)
     return loss, new_buffer, new_cnt
@@ -123,8 +129,6 @@ class TrainState:
 
 def create_train_state(cfg, model: torch.nn.Module) -> TrainState:
     """Optimizer and a zero buffer for ``model`` (on its device)."""
-    if cfg.TRAIN.FPN_OT_LOSS:
-        raise NotImplementedError("TRAIN.FPN_OT_LOSS")
     if cfg.DEV.DIS_REG_LOSS:
         raise NotImplementedError("DEV.DIS_REG_LOSS")
     device = next(model.parameters()).device
@@ -169,11 +173,15 @@ def train_step(state: TrainState, cfg, batch: Dict[str, torch.Tensor], lr: float
     if cfg.DEV.SWITCH and not cfg.DEV.BASELINE and stats is not None:
         dev_cfg = {"buffer_size": cfg.DEV.BUFFER_SIZE, "loss_choice": cfg.DEV.LOSS_CHOICE,
                    "inst_loss": cfg.DEV.INST_LOSS}
-        meta, new_buf, new_cnt = intertwiner_meta(dev_cfg, state.buffer, state.buffer_cnt, stats)
+        meta, new_buf, new_cnt = intertwiner_meta(dev_cfg, state.buffer, state.buffer_cnt, stats,
+                                                  meta_ot_fn=model.meta_ot)
         total = total + meta_gate * cfg.DEV.LOSS_FAC * meta
         big_loss = stats["big_loss"].mean()
         big_fac = cfg.DEV.BIG_LOSS_FAC if cfg.DEV.BIG_SUPERVISE else 0.0
         total = total + big_fac * big_loss
+    fpn_ot = out["fpn_ot_loss"].mean()
+    if cfg.TRAIN.FPN_OT_LOSS:
+        total = total + cfg.TRAIN.FPN_OT_LOSS_FAC * fpn_ot
 
     opt.zero_grad(set_to_none=True)
     total.backward()
@@ -183,7 +191,7 @@ def train_step(state: TrainState, cfg, batch: Dict[str, torch.Tensor], lr: float
             p.grad = torch.zeros_like(p)
     metrics = {k: v.detach() for k, v in detailed.items()}
     metrics.update(total_loss=total.detach(), meta_loss=meta.detach(),
-                   big_loss=big_loss.detach(), fpn_ot_loss=zero,
+                   big_loss=big_loss.detach(), fpn_ot_loss=fpn_ot.detach(),
                    positive_rois=out["positive_rois"])
     if stats is not None:
         for i, level in enumerate((2, 3, 4)):

@@ -8,6 +8,7 @@ Those are the reference checkpoints' names, so the JAX package's own
 ``state_dict`` back into the same trees.
 
 Layouts: flax conv ``[kh, kw, I, O]`` -> torch ``[O, I, kh, kw]``; flax
+1-D conv ``[k, I, O]`` -> torch ``Conv1d`` ``[O, I, k]``; flax
 ``ConvTranspose`` ``[kh, kw, I, O]`` (which does not flip its kernel) ->
 torch ``ConvTranspose2d`` ``[I, O, kh, kw]`` spatially flipped; flax Dense
 ``[I, O]`` -> torch ``[O, I]``; BN ``scale/bias`` + ``mean/var`` ->
@@ -57,6 +58,15 @@ _MODULES = (
     (r"dev/critic/bn2", r"dev_roi.feat_extract.4"),
     (r"dev/critic/conv3", r"dev_roi.feat_extract.6"),
     (r"dev/critic/bn3", r"dev_roi.feat_extract.7"),
+    (r"ot_loss/g_conv", r"ot_loss.G_net.0"),
+    (r"ot_loss/critic_conv", r"ot_loss.critic.0"),
+    (r"ot_loss/critic_fc", r"ot_loss.critic"),
+    (r"fpn/p(\d)_ot/g_deconv", r"fpn.p\1_ot.G_net.0"),
+    (r"fpn/p(\d)_ot/g_bn", r"fpn.p\1_ot.G_net.1"),
+    (r"fpn/p(\d)_ot/critic_conv1", r"fpn.p\1_ot.critic.0"),
+    (r"fpn/p(\d)_ot/critic_bn1", r"fpn.p\1_ot.critic.1"),
+    (r"fpn/p(\d)_ot/critic_conv2", r"fpn.p\1_ot.critic.3"),
+    (r"fpn/p(\d)_ot/critic_bn2", r"fpn.p\1_ot.critic.4"),
 )
 # port module name -> flax module path: the inverse of _MODULES (mask.conv5
 # before mask.conv\d, which would take it)
@@ -84,8 +94,18 @@ _FLAX_MODULES = (
     (r"dev_roi\.feat_extract\.4", r"dev/critic/bn2"),
     (r"dev_roi\.feat_extract\.6", r"dev/critic/conv3"),
     (r"dev_roi\.feat_extract\.7", r"dev/critic/bn3"),
+    (r"ot_loss\.G_net\.0", r"ot_loss/g_conv"),
+    (r"ot_loss\.critic\.0", r"ot_loss/critic_conv"),
+    (r"ot_loss\.critic", r"ot_loss/critic_fc"),
+    (r"fpn\.p(\d)_ot\.G_net\.0", r"fpn/p\1_ot/g_deconv"),
+    (r"fpn\.p(\d)_ot\.G_net\.1", r"fpn/p\1_ot/g_bn"),
+    (r"fpn\.p(\d)_ot\.critic\.0", r"fpn/p\1_ot/critic_conv1"),
+    (r"fpn\.p(\d)_ot\.critic\.1", r"fpn/p\1_ot/critic_bn1"),
+    (r"fpn\.p(\d)_ot\.critic\.3", r"fpn/p\1_ot/critic_conv2"),
+    (r"fpn\.p(\d)_ot\.critic\.4", r"fpn/p\1_ot/critic_bn2"),
 )
-_TRANSPOSED = {"mask.deconv"}   # flax ConvTranspose layers
+# flax ConvTranspose layers (port module names, full match)
+_TRANSPOSED = r"mask\.deconv|fpn\.p\d_ot\.G_net\.0"
 _BN_LEAVES = {"scale": "weight", "bias": "bias",
               "mean": "running_mean", "var": "running_var"}
 
@@ -123,7 +143,9 @@ def _port_tensor(module: str, leaf: str, value: np.ndarray) -> np.ndarray:
         return value
     if value.ndim == 2:                            # Dense [I, O]
         return value.T
-    if module in _TRANSPOSED:                      # ConvTranspose
+    if value.ndim == 3:                            # 1-D Conv [k, I, O]
+        return np.transpose(value, (2, 1, 0))
+    if re.fullmatch(_TRANSPOSED, module):          # ConvTranspose
         return np.transpose(value[::-1, ::-1], (2, 3, 0, 1))
     return np.transpose(value, (3, 2, 0, 1))       # Conv
 

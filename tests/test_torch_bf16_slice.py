@@ -18,12 +18,9 @@
   of ``update_port_bf16 - update_jax_bf16`` within 2 of it plus ``d``; per
   tensor, the relative L2 error of its update at most twice the largest
   JAX's own step shows, and in the median at most 1.5 times JAX's median.
-  ``d`` is at float32 rounding but for one RoI of this batch: its box ends at
-  exactly 1.0, and its big-set crop's last sample position rounds past the
-  map's last row in the port (a reciprocal multiply and a fused
-  multiply-add, as the JAX multilevel gather) and is extrapolated to 0,
-  where JAX's single-level XLA gather lands on the row (ROADMAP C.4; the
-  test asserts where and how far the float32 buffers differ). Parameters,
+  ``d`` is at float32 rounding: every class column of the float32 buffers
+  agrees within 1e-4 (the big-set crop samples where the jitted JAX crop
+  does, also for the boxes of this batch that end at exactly 1.0). Parameters,
   BN statistics, the SGD momentum, the buffer and a checkpoint stay
   float32.
 - ``test_model`` of both packages in bfloat16 from the same weights, the
@@ -165,11 +162,9 @@ def test_bf16_train_step_matches_jax_bf16(bf16_step):
     rel_jax = np.array([norm(u[2] - u[3]) / norm(u[3]) for u in moved.values()])
     assert rel_port.max() <= 2 * rel_jax.max(), (rel_port.max(), rel_jax.max())
     assert np.median(rel_port) <= 1.5 * np.median(rel_jax)
-    # C.4 (ROADMAP): in float32 the buffers differ in one class's column
-    # only, that of the one big-set RoI ending at exactly 1.0, whose last
-    # sample row the port extrapolates
+    # in float32 every class column of the buffer agrees with JAX's
     per_class = np.abs(state32.buffer.numpy() - np.asarray(js32.buffer))[0].max(axis=0)
-    assert (per_class > 0.05).sum() == 1 and np.sort(per_class)[-2] < 1e-4, per_class
+    assert per_class.max() < 1e-4, per_class
     for name, got, got32, a, b in (
             ("buffer", state.buffer, state32.buffer, js32.buffer, js16.buffer),
             ("buffer_cnt", state.buffer_cnt, state32.buffer_cnt, js32.buffer_cnt,
