@@ -62,8 +62,9 @@ Phases, each of which must pass:
    tensors K3 held as above and K1 + K3 through autograd against the plain
    backward and bit-equal over two runs; K3's per-pass device time;
 8. reference: a small model runs on the card and on the CPU (plain
-   versions) from the same weights and inputs; the pyramid, and the
-   detections of the second stage fed the same proposals, must agree; then
+   versions) from the same weights and two 128² images; the pyramid, and
+   the detections of the second stage fed the same proposals (at least
+   one), must agree; then
    one train step from the same weights, batch, draws and proposals: losses
    within 1e-4 relative, parameters within 1e-5, the buffer within 1e-4;
 9. roi_single: the ``crop`` sweep (B=8, 1024 boxes per image, 256² x 256,
@@ -142,6 +143,23 @@ Phases, each of which must pass:
    parameters within 1e-5 plus what the meta loss moved them by (its
    gradient through the 1-D normalisation is rounding noise), the buffer
    within 1e-4.
+18. dev_up2_merge_path: the flagship with ``DEV.UPSAMPLE_FAC 2.0`` (the
+   make-up layer a 3x3 stride-2 transposed conv, maps of twice the side)
+   and ``DEV.CLS_MERGE_FEAT`` (simple_add) at full width: ``detect()`` in
+   float32 and bfloat16, counted from 0: K1 3 per forward (the 7²
+   classifier, the 14² critic and the 14² mask pooling), K2 at least 2,
+   each K1 call bit-equal to its plain version and over two launches; the
+   forward paired with the factor-1 flagship's in turns; one 'all' stage of
+   2 steps in bfloat16: per step K1 2, K4 3, K3 2, K2 at least 1, finite
+   losses, the critic and the make-up layer moved, K1 and K4 bit-equal, K3
+   on the last step's cotangents within 1e-5 of its plain version and
+   bit-equal over two launches, timed beside its bytes bound, its plain
+   version and grid_sample's backward; the step
+   paired with the factor-1 flagship's; then two small models card against
+   CPU (``MULTI_UPSAMPLER`` + ``UPSAMPLE_RESIDUAL`` + ``UPSAMPLE_INIT
+   identity`` + linear_add at factor 2; ``DIS_UPSAMPLER`` with the merge):
+   the second stage on the same proposals and one float32 train step, to
+   the tolerances of 8.
 ``roi_single`` also runs the ``crop`` sweep on a bfloat16 map (K4 and K5
 bit-equal to their plain versions), and ``window_probe`` K6 on C = 3 and
 on a map one channel off a pair (one channel a lane).
@@ -1366,13 +1384,19 @@ def main() -> int:
         return runs
 
     small_opts = list(FLAGSHIP_OVERRIDES) + SMALL_OPTS
+    # two 128² canvases, molded without a padding band: on images molded
+    # with one the small random model detects nothing
+    small_images = synthetic_images(seed=0, h=128, w=128)
 
-    def reference():
-        small = build_config("smoke_small", "inference", opts=small_opts)
+    def small_second_stage(small, label):
+        """A small model of config ``small`` on the card and on the CPU from
+        the same seeded weights, on two 128² images: the pyramids within 1e-4
+        relative, and the second stage fed the card's pyramid and proposals:
+        at least one detection, counts and classes equal, boxes within 1 px,
+        scores within 1e-4, masks within 1e-4 where the boxes agree."""
         gpu = seeded_model(build_model, small, seed=3)
         cpu = seeded_model(build_model, small, seed=3, device="cpu")
-        imgs = [im[::4, ::4].copy() for im in images]
-        m_gpu, w_gpu = mold_inputs(imgs, small, "cuda")
+        m_gpu, w_gpu = mold_inputs(small_images, small, "cuda")
         m_cpu, w_cpu = m_gpu.cpu(), w_gpu.cpu()
         with torch.inference_mode():
             pyr_g, _, _, props = gpu.first_stage(m_gpu)
@@ -1382,6 +1406,7 @@ def main() -> int:
             out_g = gpu.second_stage(pyr_g[:4], props, w_gpu)
             out_c = cpu.second_stage([p.cpu() for p in pyr_g[:4]], props.cpu(), w_cpu)
         dg, dc = out_g["detections"].cpu(), out_c["detections"]
+        count = int((dg[..., 5] > 0).sum())
         same_count = bool(((dg[..., 5] > 0).sum(1) == (dc[..., 5] > 0).sum(1)).all())
         box_err = float((dg[..., :4] - dc[..., :4]).abs().max())
         score_err = float((dg[..., 5] - dc[..., 5]).abs().max())
@@ -1389,16 +1414,21 @@ def main() -> int:
         # masks pool at the detection boxes: compared where the boxes agree
         same_box = (dg[..., :4] == dc[..., :4]).all(-1)
         mask_err = float((out_g["masks"].cpu() - out_c["masks"]).abs()[same_box].max())
-        log(f"REFERENCE small model card vs CPU: pyramid rel err {rel:.3g}, detections "
+        log(f"{label} small model card vs CPU: pyramid rel err {rel:.3g}, {count} detections, "
             f"count equal {same_count}, classes equal {cls_same}, box err {box_err} px, "
             f"score err {score_err:.3g}, mask err {mask_err:.3g}")
-        require(rel <= 1e-4 and same_count and cls_same,
-                "the card's pyramid or detections differ from the CPU's")
+        require(rel <= 1e-4 and same_count and cls_same and count > 0,
+                f"{label}: the card's pyramid or detections differ from the CPU's, or it "
+                f"detects nothing")
         require(box_err <= 1.0 and score_err <= 1e-4 and mask_err <= 1e-4,
-                "the card's boxes, scores or masks differ from the CPU's")
+                f"{label}: the card's boxes, scores or masks differ from the CPU's")
 
-        # one train step of a small model, card against CPU
-        tsmall = build_config("smoke_small", "train", opts=list(small_opts) + [
+    def small_step_checked(opts, label):
+        """:func:`small_step_card_and_cpu` on the small config of ``opts``
+        (RoI levels as at 1024²), held to the train-step tolerances: losses
+        within 1e-4 relative, parameters within 1e-5 of each tensor's largest
+        magnitude, the buffer within 1e-4; with positives and a meta loss."""
+        tsmall = build_config("smoke_small", "train", opts=opts + [
             "ROIS.ASSIGN_ANCHOR_BASE", "56.0"])
         runs = small_step_card_and_cpu(tsmall)
         (mg, pg, bg, cg), (mc, pc, bc, cc) = runs["cuda"], runs["cpu"]
@@ -1407,14 +1437,21 @@ def main() -> int:
         param_rel, worst = max((float((pg[n] - pc[n]).abs().max()
                                       / pc[n].abs().max().clamp_min(1e-12)), n) for n in pc)
         buf_err = max(float((bg - bc).abs().max()), float((cg - cc).abs().max()))
-        log(f"REFERENCE train step card vs CPU: losses rel err {loss_rel:.3g} "
+        log(f"{label} train step card vs CPU: losses rel err {loss_rel:.3g} "
             f"(total {mg['total_loss']:.5f} / {mc['total_loss']:.5f}, positives "
             f"{mg['positive_rois']:.0f}, meta {mg['meta_loss']:.4g}), parameters rel err "
             f"{param_rel:.3g} ({worst}), buffer err {buf_err:.3g}")
         require(loss_rel <= 1e-4 and param_rel <= 1e-5 and buf_err <= 1e-4,
-                "the card's train step differs from the CPU's")
+                f"{label}: the card's train step differs from the CPU's")
         require(mg["positive_rois"] > 0 and mg["meta_loss"] > 0,
-                "the reference step had no positive RoI or no meta loss")
+                f"{label}: the step had no positive RoI or no meta loss")
+
+    def reference():
+        small_second_stage(build_config("smoke_small", "inference", opts=small_opts),
+                           "REFERENCE")
+
+        # one train step of a small model, card against CPU
+        small_step_checked(list(small_opts), "REFERENCE")
 
     phase("reference", reference)
 
@@ -2638,6 +2675,264 @@ def main() -> int:
 
     phase("ot_train_path", ot_train_path)
     phase("ot_reference", ot_reference)
+
+    # 18. the make-up layer at UPSAMPLE_FAC 2 and CLS_MERGE_FEAT ------------------------
+    up2_opts = list(FLAGSHIP_OVERRIDES) + ["DEV.UPSAMPLE_FAC", "2.0", "DEV.CLS_MERGE_FEAT",
+                                           "True"]
+
+    def hold_k1(calls, label):
+        """Each recorded K1 call bit-equal to its plain version on its own
+        tensors and over two launches, timed beside its float32 bound, its
+        plain version and ``grid_sample`` over P2; returns the calls' (crop,
+        boxes, ms, bound ms, plain ms, grid_sample ms) rows."""
+        rows = []
+        for args, kwargs in calls:
+            feats, boxes, bidx, lidx, crop = args[:5]
+            got = roi_ops.roi_align_fwd(*args, **kwargs)
+            again = roi_ops.roi_align_fwd(*args, **kwargs)
+            want = roi_ops.multilevel_gather_plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want) and torch.equal(got, again),
+                    f"{label}: K1 differs from its plain version or itself (n={boxes.shape[0]}, "
+                    f"crop={tuple(crop)})")
+            k_ms = cuda_ms(torch, lambda: roi_ops.roi_align_fwd(*args, **kwargs), 10)
+            p_ms = cuda_ms(torch, lambda: roi_ops.multilevel_gather_plain(*args, **kwargs), 3)
+            p2 = feats[0].permute(0, 3, 1, 2)
+            grid = profile_roi.box_grid(boxes, crop, p2.shape[0]).to(p2.dtype)
+            l_ms = cuda_ms(torch, lambda: torch.nn.functional.grid_sample(
+                p2, grid, mode="bilinear", padding_mode="zeros", align_corners=True), 10)
+            nbytes, taps, n_ops = k1_work(torch, roi_ops, feats, boxes, bidx, lidx, crop)
+            b_ms = max(nbytes / H100_BYTES_PER_S, n_ops / H100_FP32_OPS_PER_S) * 1e3
+            rows.append((tuple(crop), boxes.shape[0], k_ms, b_ms, p_ms, l_ms))
+            log(f"  {label} roi_align_fwd {str(feats[0].dtype).split('.')[-1]} n={boxes.shape[0]} "
+                f"crop={tuple(crop)} maps {[tuple(f.shape[1:3]) for f in feats]}: bit-equal to "
+                f"plain and over two launches, {k_ms:.4f} ms, float32 bound {b_ms:.6f} ms "
+                f"({taps} tap rows), plain {p_ms:.4f} ms, grid_sample over P2 {l_ms:.4f} ms")
+        return rows
+
+    def up2_inference(model, icfg):
+        """``detect()`` of the factor-2 merge model in its dtype, counted
+        from 0: K1 3 (7² classifier, 14² critic, 14² mask), K2 at least 2;
+        the outputs; each K1 call held by :func:`hold_k1`. Returns the molded
+        images and their windows."""
+        label = f"UP2 MAIN [{str(model.dtype).split('.')[-1]}]"
+        detect(model, images, icfg)                    # warm-up
+        torch.cuda.synchronize()
+        cuda_build.launches.clear()
+        with Recorder(roi_ops, "roi_align_fwd") as roi_rec, \
+                Recorder(nms_ops, "nms_alive") as nms_rec:
+            results = detect(model, images, icfg)
+        launches = {k: cuda_build.launches[k] for k in ("roi_align_fwd", "nms_alive")}
+        log(f"{label} LAUNCHES " + json.dumps(launches))
+        require(launches["roi_align_fwd"] == 3 and launches["nms_alive"] >= 2,
+                f"{label} launches {launches}: want K1 3, K2 at least 2")
+        molded, windows = mold_inputs(images, icfg, "cuda")
+        with torch.inference_mode():
+            out = model.forward_inference(molded, windows)
+        det, masks = out["detections"], out["masks"]
+        require(det.shape == (2, 100, 6) and masks.shape == (2, 100, 28, 28)
+                and bool(torch.isfinite(det).all() and torch.isfinite(masks).all())
+                and bool(((masks >= 0) & (masks <= 1)).all()), f"{label} outputs")
+        n_det = [int((det[i, :, 5] > 0).sum()) for i in range(2)]
+        require(min(n_det) > 0, f"{label}: no detections {n_det}")
+        log(f"{label} detections per image {n_det}; "
+            f"{sum(len(r['class_ids']) for r in results)} after unmolding")
+        with torch.inference_mode():
+            rows = hold_k1(roi_rec.calls, label)
+            mism = sum(int((nms_ops.nms_alive(*a, **k) != nms_ops.greedy_alive_sorted_plain(
+                *a, **k)).sum()) for a, k in nms_rec.calls)
+        require(mism == 0, f"{label}: K2 differs from its plain version")
+        require(sorted(r[0] for r in rows) == [(7, 7), (14, 14), (14, 14)],
+                f"{label}: K1 crops {[r[0] for r in rows]}")
+        log(f"{label} K1 per forward {sum(r[2] for r in rows):.4f} ms over 3 launches, float32 "
+            f"bound {sum(r[3] for r in rows):.6f} ms, plain {sum(r[4] for r in rows):.4f} ms, "
+            f"grid_sample {sum(r[5] for r in rows):.4f} ms")
+        return molded, windows
+
+    def up2_train(dtype):
+        """One 'all' stage of 2 steps of the factor-2 merge recipe through
+        Trainer/train_model in ``dtype``, counted from 0: per step K1 2, K4
+        3, K3 2, K2 at least 1; finite losses; the critic and the make-up
+        transposed conv moved; K1 and K4 bit-equal to their plain versions;
+        K3 on the last step's cotangents (widened to float32) held and timed
+        by :func:`check_bwd`, and as the step calls it in ``dtype``. Returns
+        the trainer and the loader."""
+        import shutil
+        import tempfile
+
+        from feature_intertwiner_tpu_torch.data import synthetic
+        from feature_intertwiner_tpu_torch.data.loader import DetectionDataset, Loader
+        from feature_intertwiner_tpu_torch.models import intertwiner
+        from feature_intertwiner_tpu_torch.train import workflow
+
+        label = f"UP2 TRAIN [{str(dtype).split('.')[-1]}]"
+        tcfg = build_config("meta_105_quick_1", "train", opts=up2_opts + [
+            "TRAIN.DO_VALIDATION", "False", "TRAIN.SCHEDULE", "[0, 0, 1]",
+            "TRAIN.KEEP_CHECKPOINTS", "1", "CTRL.SHOW_INTERVAL", "1"])
+        require(tcfg.TRAIN.BATCH_SIZE == 4 and tcfg.ROIS.TRAIN_ROIS_PER_IMAGE == 200
+                and tcfg.DATA.IMAGE_MAX_DIM == 1024 and tcfg.DATASET.NUM_CLASSES == 81,
+                "the factor-2 recipe is not at full width")
+        folder = tempfile.mkdtemp(prefix="chip_smoke_up2_", dir=os.path.join(ROOT, "build"))
+        tcfg.MISC.RESULT_FOLDER = folder
+        tcfg.MISC.LOG_FILE = os.path.join(folder, "log.txt")
+        data = synthetic.generate(num_images=8, **TRAIN_DATA)
+        loader = Loader(DetectionDataset(data, tcfg, augment=True, seed=tcfg.MISC.SEED),
+                        batch_size=tcfg.TRAIN.BATCH_SIZE, shuffle=True, seed=tcfg.MISC.SEED)
+        trainer = workflow.Trainer(temper_fpn(seeded_model(build_model, tcfg, seed=0,
+                                                           dtype=dtype)), tcfg).resume()
+        watched = ("dev_roi.feat_extract.0.weight", "dev_roi.upsample.0.0.weight")
+        before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()
+                  if n in watched}
+        steps, k4_mism, step_fn = [], [], workflow.train_step
+
+        def recorded_step(st, cfg_, batch, lr, meta_gate, generator=None, draws=None):
+            counts0 = dict(cuda_build.launches)
+            for rec in (bwd_rec, fwd_rec, k4_rec):
+                rec.calls.clear()               # the last step's calls only
+            metrics = step_fn(st, cfg_, batch, lr, meta_gate, generator, draws)
+            torch.cuda.synchronize()
+            steps.append(dict({k: float(v) for k, v in metrics.items()}, launches={
+                k: cuda_build.launches[k] - counts0.get(k, 0) for k in TRAIN_KERNELS}))
+            k4_mism.append(held_k4(k4_rec.calls))
+            return metrics
+
+        workflow.train_step = recorded_step
+        try:
+            with Recorder(roi_ops, "roi_align_bwd") as bwd_rec, \
+                    Recorder(roi_ops, "roi_align_fwd") as fwd_rec, \
+                    Recorder(intertwiner, "crop_and_resize_grouped") as k4_rec:
+                cuda_build.launches.clear()
+                workflow.train_model(trainer, loader, "all")
+                launches = {k: cuda_build.launches[k] for k in TRAIN_KERNELS}
+        finally:
+            workflow.train_step = step_fn
+        log(f"{label} LAUNCHES " + json.dumps(launches))
+        for i, s_ in enumerate(steps):
+            log(f"{label} step {i + 1} ['all'] "
+                + " ".join(f"{k.replace('_loss', '')} {s_[k]:.5g}" for k in (
+                    "total_loss", "rpn_class_loss", "rpn_bbox_loss", "mrcnn_class_loss",
+                    "mrcnn_bbox_loss", "mrcnn_mask_loss", "meta_loss"))
+                + f" | positives {s_['positive_rois']:.0f} | launches {s_['launches']}")
+        require(len(steps) == 2 and step_launches_ok(launches, 2), f"{label} launches {launches}")
+        for s_ in steps:
+            require(step_launches_ok(s_["launches"], 1), f"{label} step launches {s_['launches']}")
+            require(all(math.isfinite(s_[k]) for k in s_ if k.endswith("_loss")),
+                    f"{label}: a non-finite loss")
+        require(any(s_["positive_rois"] > 0 and s_["meta_loss"] > 0 for s_ in steps),
+                f"{label}: no step had positive RoIs and a non-zero meta loss")
+        after = dict(trainer.model.named_parameters())
+        moved = {n: not torch.equal(after[n].detach(), p) for n, p in before.items()}
+        log(f"{label} moved: {moved}; K4 against its plain version on each step's tensors: "
+            f"{sum(k4_mism)} values differ over {3 * len(steps)} calls")
+        require(all(moved.values()), f"{label}: the critic or the make-up layer did not move")
+        require(sum(k4_mism) == 0, f"{label}: K4 differs from its plain version")
+        with torch.no_grad():
+            k1_rows = hold_k1(fwd_rec.calls, label)
+            require(len(k1_rows) == 2, f"{label}: {len(k1_rows)} K1 calls in the last step")
+            k3 = dict(abs=0.0, ms=0.0, plain_ms=0.0, lib_ms=0.0, bytes=0, ms_entry=0.0,
+                      bytes_entry=0)
+            for args, kwargs in bwd_rec.calls:
+                g, shapes = args[0], args[1]
+                r = check_bwd(label, g.float(), *args[1:6], shapes[0][0])
+                for key in ("ms", "plain_ms", "lib_ms", "bytes"):
+                    k3[key] += r[key]
+                k3["abs"] = max(k3["abs"], r["abs"])
+                k3["ms_entry"] += cuda_ms(torch, lambda: roi_ops.roi_align_bwd(*args, **kwargs), 10)
+                k3["bytes_entry"] += r["bytes"] * g.element_size() // 4
+            require(len(bwd_rec.calls) == 2, f"{label}: {len(bwd_rec.calls)} K3 calls")
+        fold_err("roi_align_bwd", k3["abs"])
+        log(f"{label} per step: K1 {sum(r[2] for r in k1_rows):.4f} ms (float32 bound "
+            f"{sum(r[3] for r in k1_rows):.6f}, plain {sum(r[4] for r in k1_rows):.4f}, "
+            f"grid_sample {sum(r[5] for r in k1_rows):.4f}); K3 float32 kernel {k3['ms']:.4f} "
+            f"ms, bound {k3['bytes'] / H100_BYTES_PER_S * 1e3:.6f} ms ({k3['bytes']} bytes), "
+            f"plain {k3['plain_ms']:.4f}, grid_sample backward {k3['lib_ms']:.4f}; K3 as the "
+            f"step calls it {k3['ms_entry']:.4f} ms, bound "
+            f"{k3['bytes_entry'] / H100_BYTES_PER_S * 1e3:.6f} ms ({k3['bytes_entry']} bytes)")
+        del bwd_rec, fwd_rec, k4_rec
+        shutil.rmtree(folder, ignore_errors=True)
+        return trainer, loader
+
+    def dev_up2_merge_path():
+        """The flagship with ``DEV.UPSAMPLE_FAC 2.0 DEV.CLS_MERGE_FEAT True``
+        (the make-up layer a 3x3 stride-2 transposed conv; the critic's
+        vectors added to the classifier, simple_add) at full width:
+        ``detect()`` in float32 and bfloat16 (:func:`up2_inference`), its
+        forward paired with the factor-1 flagship's in turns; one 'all'
+        stage of 2 steps in bfloat16 (:func:`up2_train`), its step paired
+        with the factor-1 flagship's; then two small models card against
+        CPU, the second stage on the same proposals and one float32 train
+        step as in ``reference``: ``MULTI_UPSAMPLER`` + ``UPSAMPLE_RESIDUAL``
+        + ``UPSAMPLE_INIT identity`` + linear_add at factor 2, and
+        ``DIS_UPSAMPLER`` with the merge."""
+        from feature_intertwiner_tpu_torch.train import workflow
+
+        t0 = time.perf_counter()
+        icfg = build_config("meta_105_quick_1", "inference", opts=up2_opts)
+        m2, m1 = seeded_model(build_model, icfg, seed=0), seeded_model(build_model, cfg, seed=0)
+        require(m2.classifier.merge_feat and m2.dev_roi.upsample[0][0].stride == (2, 2),
+                "the model has no factor-2 make-up layer or no merge")
+        for dtype in (torch.float32, torch.bfloat16):
+            m1.dtype = m2.dtype = dtype                # re-typed, the same parameters
+            molded, windows = up2_inference(m2, icfg)
+            with torch.inference_mode():
+                ms, runs = paired({"factor 1": lambda: m1.forward_inference(molded, windows),
+                                   "factor 2": lambda: m2.forward_inference(molded, windows)},
+                                  3, events=True)
+            with torch.inference_mode():
+                out = profile_by_family(torch, lambda: m2.forward_inference(molded, windows), 3,
+                                        families)
+                log_breakdown(f"UP2 BREAKDOWN forward {str(dtype).split('.')[-1]}", *out)
+                log("UP2 the aten ops of that forward with the most device time:")
+                for ms_, n_, op, shapes in top_ops(
+                        torch, lambda: m2.forward_inference(molded, windows), 6):
+                    log(f"    {ms_:9.3f} ms  {n_:4d} calls  {op}  {str(shapes)[:110]}")
+            log(f"UP2 forward_inference ms [{str(dtype).split('.')[-1]}], medians of 6 in turns "
+                f"(CUDA events): factor 2 with the merge {ms['factor 2']:.2f} (runs "
+                f"{', '.join(f'{x:.2f}' for x in runs['factor 2'])}), factor 1 "
+                f"{ms['factor 1']:.2f} (runs {', '.join(f'{x:.2f}' for x in runs['factor 1'])})")
+        del m1, m2
+        log(f"UP2 inference in both dtypes, paired: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        t2, loader = up2_train(torch.bfloat16)
+        log(f"UP2 the bfloat16 stage and its checks: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        tcfg1 = build_config("meta_105_quick_1", "train", opts=list(FLAGSHIP_OVERRIDES))
+        t1 = workflow.Trainer(temper_fpn(seeded_model(build_model, tcfg1, seed=0,
+                                                      dtype=torch.bfloat16)), tcfg1)
+        batch = workflow.to_device(next(iter(loader)), "cuda")
+        gen = torch.Generator(device="cuda")
+        for t in (t1, t2):
+            workflow.set_trainable(t.model, "all")
+
+        def one(t):
+            gen.manual_seed(0)
+            workflow.train_step(t.state, t.cfg, batch, 1e-4, 1.0, gen)
+
+        one(t1)
+        step_ms, runs = paired({"factor 1": lambda: one(t1), "factor 2": lambda: one(t2)}, 3,
+                               events=True)
+        log(f"UP2 TRAIN step ms ['all', bfloat16], medians of 6 in turns (CUDA events): factor "
+            f"2 with the merge {step_ms['factor 2']:.2f} (runs "
+            f"{', '.join(f'{x:.2f}' for x in runs['factor 2'])}), factor 1 "
+            f"{step_ms['factor 1']:.2f} (runs {', '.join(f'{x:.2f}' for x in runs['factor 1'])})")
+        out = profile_by_family(torch, lambda: one(t2), 1, families)
+        log_breakdown("UP2 TRAIN BREAKDOWN one 'all' step bfloat16", *out)
+        del t1, t2, batch
+        log(f"UP2 the step paired with factor 1: {time.perf_counter() - t0:.1f} s")
+
+        for name, variant in (
+                ("multi + residual + identity + linear_add, factor 2",
+                 ["DEV.UPSAMPLE_FAC", "2.0", "DEV.MULTI_UPSAMPLER", "True",
+                  "DEV.UPSAMPLE_RESIDUAL", "True", "DEV.UPSAMPLE_INIT", "identity",
+                  "DEV.CLS_MERGE_FEAT", "True", "DEV.CLS_MERGE_MANNER", "linear_add"]),
+                ("dis_upsampler + simple_add", ["DEV.DIS_UPSAMPLER", "True",
+                                                "DEV.CLS_MERGE_FEAT", "True"])):
+            small = build_config("smoke_small", "inference", opts=small_opts + variant)
+            require(small.DEV.CLS_MERGE_FEAT, f"UP2 REFERENCE {name}: no merge")
+            small_second_stage(small, f"UP2 REFERENCE {name}")
+            small_step_checked(small_opts + variant, f"UP2 REFERENCE {name}")
+
+    phase("dev_up2_merge_path", dev_up2_merge_path)
 
     if failures:
         log("FAILED phases: " + ", ".join(failures))

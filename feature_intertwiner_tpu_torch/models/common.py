@@ -145,26 +145,42 @@ class SamePad2d(nn.Module):
 TRUNC_STD = 0.87962566103423978
 
 
+def bilinear_taps(kernel: int) -> torch.Tensor:
+    """The per-axis taps of a stride-2 bilinear-upsampling transposed conv
+    (JAX ``_bilinear_deconv_init``): [0.5, 1, 0.5] for 3."""
+    c = (kernel - 1) / 2.0
+    return 1.0 - (torch.arange(kernel, dtype=torch.float32) - c).abs() / 2
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights as the JAX package initialises them:
     Xavier-uniform convolutions (1-D and 2-D), Xavier-normal transposed
     convolutions
     (flax ``xavier_normal``: a normal truncated at two of its standard
-    deviations, of variance 2 / (fan_in + fan_out)), the delta kernel of
-    the JAX ``_identity_conv_init`` (zero but the centre tap's [out, in]
-    identity) for a conv marked ``delta_init`` (``DEV.UPSAMPLE_INIT
-    identity``), N(0, 0.01) dense layers, zero biases, BN at identity (scale 1, bias 0, running
-    statistics (0, 1)). The generator is a CPU generator; initialise before
-    moving the model."""
+    deviations, of variance 2 / (fan_in + fan_out)), N(0, 0.01) dense
+    layers, zero biases, BN at identity (scale 1, bias 0, running
+    statistics (0, 1)), a zero ``gate`` (the make-up layer's residual). A
+    conv marked ``identity_init`` (``DEV.UPSAMPLE_INIT identity``) gets the
+    delta kernel of the JAX ``_identity_conv_init`` (zero but the centre
+    tap's [out, in] identity), a transposed conv so marked the bilinear
+    kernel of ``_bilinear_deconv_init`` (:func:`bilinear_taps` per axis
+    times the [in, out] identity; the kernel is symmetric, so the flip the
+    port's transposed convs hold leaves it as it is). The generator is a
+    CPU generator; initialise before moving the model."""
     for m in model.modules():
         if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
             # fan_in + fan_out, the same for a conv and its transpose
             fans = (w.shape[0] + w.shape[1]) * w[0, 0].numel()
-            if getattr(m, "delta_init", False):
-                w.zero_()
-                w[:, :, w.shape[2] // 2, w.shape[3] // 2] = torch.eye(w.shape[0], w.shape[1])
+            if getattr(m, "identity_init", False):
+                eye = torch.eye(w.shape[0], w.shape[1])
+                if isinstance(m, nn.ConvTranspose2d):
+                    taps = bilinear_taps(w.shape[2])[:, None] * bilinear_taps(w.shape[3])[None]
+                    w.copy_(eye[:, :, None, None] * taps)
+                else:
+                    w.zero_()
+                    w[:, :, w.shape[2] // 2, w.shape[3] // 2] = eye
             elif isinstance(m, nn.ConvTranspose2d):
                 std = math.sqrt(2.0 / fans) / TRUNC_STD
                 nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator).mul_(std)
@@ -181,4 +197,6 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+        if isinstance(getattr(m, "gate", None), nn.Parameter):
+            m.gate.zero_()
     return model

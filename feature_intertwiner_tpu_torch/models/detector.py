@@ -77,6 +77,8 @@ class InterNet(nn.Module):
         dev_assign_all_scale: bool = False,
         dev_feat_pool_size: int = 14,
         cls_merge_feat: bool = False,
+        cls_merge_manner: str = "simple_add",
+        cls_merge_fac: float = 0.5,
         post_nms_train: int = 2000,
         train_anchors_per_image: int = 256,
         rpn_pos_thresh: float = 0.7,
@@ -97,8 +99,6 @@ class InterNet(nn.Module):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute dtype float32 or bfloat16, got {dtype}")
         self.dtype = dtype
-        if dev_switch and cls_merge_feat and dev_structure == "beta":
-            raise NotImplementedError("DEV.CLS_MERGE_FEAT")
         if tuple(mask_shape) != (2 * mask_pool_size, 2 * mask_pool_size):
             raise ValueError("MRCNN.MASK_SHAPE must be twice MASK_POOL_SIZE")
         self.num_classes = num_classes
@@ -137,7 +137,11 @@ class InterNet(nn.Module):
             num_classes=num_classes, loss_choice=dev_loss_choice,
             baseline=dev_baseline, big_supervise=dev_big_supervise,
             big_feat_detach=dev_big_feat_detach)
-        self.classifier = BoxHead(num_classes, pool_size, fpn_channels)
+        # the critic's vectors join the classifier (JAX detector.py:206-209)
+        self.classifier = BoxHead(
+            num_classes, pool_size, fpn_channels,
+            merge_feat=dev_switch and cls_merge_feat and dev_structure == "beta",
+            merge_manner=cls_merge_manner, merge_fac=cls_merge_fac)
         self.mask = MaskHead(num_classes, fpn_channels)
         # the OT meta loss's generator and critic, run by the train step
         # through meta_ot
@@ -200,6 +204,8 @@ class InterNet(nn.Module):
             dev_assign_all_scale=cfg.DEV.ASSIGN_BOX_ON_ALL_SCALE,
             dev_feat_pool_size=cfg.DEV.FEAT_BRANCH_POOL_SIZE,
             cls_merge_feat=cfg.DEV.CLS_MERGE_FEAT,
+            cls_merge_manner=cfg.DEV.CLS_MERGE_MANNER,
+            cls_merge_fac=cfg.DEV.CLS_MERGE_FAC,
             post_nms_train=cfg.RPN.POST_NMS_ROIS_TRAINING,
             train_anchors_per_image=cfg.RPN.TRAIN_ANCHORS_PER_IMAGE,
             rpn_pos_thresh=cfg.RPN.TARGET_POS_THRES,
@@ -247,12 +253,18 @@ class InterNet(nn.Module):
                      windows: torch.Tensor, with_masks: bool = True,
                      image_size: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """P2..P5 (NCHW) and proposals -> {detections [B, M, 6],
-        masks [B, M, 28, 28]} (masks: each detection's own class)."""
+        masks [B, M, 28, 28]} (masks: each detection's own class). With
+        ``CLS_MERGE_FEAT`` every proposal is also pooled 14² for the critic,
+        whose vectors join the classifier."""
         b, r, _ = proposals.shape
         size = image_size or self.image_size
         maps = self.dev_roi.pooling_maps(feats)
         pooled = self.dev_roi.pool(maps, proposals, self.pool_size, size)
-        _, probs, bbox, _ = self.classifier(pooled)
+        small = ()
+        if self.classifier.merge_feat and not self.dev_roi.baseline:
+            small = self.dev_roi.small_features(
+                self.dev_roi.pool(maps, proposals, self.mask_pool_size, size), proposals, size)
+        _, probs, bbox, _ = self.classifier(pooled, *small)
         detections, _, _ = detection_layer(
             proposals, probs.reshape(b, r, self.num_classes),
             bbox.reshape(b, r, self.num_classes, 4), windows.float(),
@@ -321,7 +333,8 @@ class InterNet(nn.Module):
         pooled_cls, pooled_mask, stats = self.dev_roi.forward_train(
             pyramid[:4], det_t.rois, det_t.class_ids, self.pool_size,
             self.mask_pool_size)
-        logits, _, bbox, _ = self.classifier(pooled_cls)
+        small = (stats["small_out"], stats["small_gt"]) if stats is not None else ()
+        logits, _, bbox, _ = self.classifier(pooled_cls, *small)
         masks = self.mask(pooled_mask)
         r, k = self.rois_per_image, self.num_classes
         mh, mw = self.mask_shape

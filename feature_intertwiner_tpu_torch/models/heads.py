@@ -7,11 +7,18 @@ the convs run on NCHW views of channels-last memory.
 The mask upsample is the JAX package's flax ``ConvTranspose`` 2×2/2 SAME,
 which does not flip its kernel; the torch ``ConvTranspose2d`` here holds
 that kernel spatially flipped (``utils/convert_weights.py``).
+
+With ``CLS_MERGE_FEAT`` the classifier adds the critic's 1024-d vectors
+(``Dev``, float32, in RoI order) to its ``fc1`` feature after BN and ReLU,
+on the RoIs whose ``small_gt`` is positive: ``simple_add`` adds them,
+``linear_add`` mixes ``(1 − w)·x + w·small`` with ``w = CLS_MERGE_FAC``. The
+sum promotes to float32 as in JAX, and goes back to the compute dtype
+before ``fc2``, as flax's ``fc2`` casts its input.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -20,12 +27,20 @@ from .common import Conv2d, ConvTranspose2d, Linear, batch_norm
 
 
 class BoxHead(nn.Module):
-    """Pooled [N, P, P, C] -> (logits [N, K], probs [N, K], deltas [N, K, 4],
-    the 1024-d penultimate feature [N, 1024])."""
+    """Pooled [N, P, P, C] (and, with ``merge_feat``, the critic's
+    small_feat [N, 1024] and small_gt [N]) -> (logits [N, K], probs [N, K],
+    deltas [N, K, 4], the 1024-d penultimate feature [N, 1024])."""
 
-    def __init__(self, num_classes: int, pool_size: int = 7, depth: int = 256):
+    def __init__(self, num_classes: int, pool_size: int = 7, depth: int = 256,
+                 merge_feat: bool = False, merge_manner: str = "simple_add",
+                 merge_fac: float = 0.5):
         super().__init__()
+        if merge_feat and merge_manner not in ("simple_add", "linear_add"):
+            raise ValueError(f"DEV.CLS_MERGE_MANNER {merge_manner}")
         self.num_classes = num_classes
+        self.merge_feat = merge_feat
+        self.merge_manner = merge_manner
+        self.merge_fac = merge_fac
         # fc1 is a conv whose kernel is the pool size, VALID: an FC as a conv
         self.conv1 = Conv2d(depth, 1024, pool_size)
         self.bn1 = batch_norm(1024)
@@ -35,10 +50,20 @@ class BoxHead(nn.Module):
         self.linear_bbox = Linear(1024, num_classes * 4)
         self.relu = nn.ReLU(inplace=True)
 
-    def forward(self, pooled) -> Tuple[torch.Tensor, ...]:
+    def forward(self, pooled, small_feat: Optional[torch.Tensor] = None,
+                small_gt: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
         n = pooled.shape[0]
         x = pooled.permute(0, 3, 1, 2)
         x = self.relu(self.bn1(self.conv1(x)))
+        if self.merge_feat and small_feat is not None:
+            gate = (small_gt > 0).to(x.dtype).reshape(n, 1, 1, 1)
+            small = small_feat.reshape(n, -1, 1, 1)
+            if self.merge_manner == "simple_add":
+                merged = x + small * gate
+            else:
+                w = gate * self.merge_fac
+                merged = (1.0 - w) * x + w * small
+            x = merged.to(x.dtype)
         x = self.relu(self.bn2(self.conv2(x)))
         feat = x.reshape(n, 1024)
         logits = self.linear_class(feat).float()

@@ -1,35 +1,37 @@
 """Dev, the Feature Intertwiner RoI stage.
 
-Port of ``feature_intertwiner_tpu/models/intertwiner.py`` for the flagship
-recipe: ``structure beta``, RoIAlign pooling and ``UPSAMPLE_FAC`` 1.0. With
-the intertwiner on, one shared make-up block (3×3 conv, BN eps 1e-5, ReLU)
-runs over P2 to P5 and every RoI pools from the upsampled map of its FPN
-level; with it off, RoIs pool from P2 to P5 directly. Both use the FPN
-equation-1 level.
+Port of ``feature_intertwiner_tpu/models/intertwiner.py`` for ``structure
+beta`` and RoIAlign pooling. With the intertwiner on, the make-up layer
+(:class:`UpsampleBlock`) runs over P2 to P5 and every RoI pools from the
+made-up map of its FPN level; with it off, or under ``DIS_UPSAMPLER``, RoIs
+pool from P2 to P5 directly. Both use the FPN equation-1 level. The layer
+is one block shared by the four levels, or one per level under
+``MULTI_UPSAMPLER``; at ``UPSAMPLE_FAC`` 2 (the default) a made-up map has
+twice the side of its level.
 
-The JAX package runs the make-up block on each Dev call, once for the
+The JAX package runs the make-up layer on each Dev call, once for the
 classifier pooling and once for the mask pooling; the port runs it once per
-forward (:meth:`Dev.pooling_maps`) and pools twice from the result. The
-numbers are the same.
+forward (:meth:`Dev.pooling_maps`) and pools from the result as often as it
+needs. The numbers are the same.
 
-In training (:meth:`Dev.forward_train`) the critic (``feat_extract``) turns
-every RoI's 14² pooling into a 1024-d vector (sigmoid for the L1/L2 meta
-loss, softmax for KL, none for OT). Per meta level l in (2, 3, 4) the small
-set is the RoIs assigned to l, and the reliable ("big") set the RoIs of the
-levels above it, pooled 14² from the raw map P_l by the single-level
-grouped crop (K4) with the sample positions of the jitted JAX
+The critic (``feat_extract``) turns an RoI's 14² pooling into a 1024-d
+vector (sigmoid for the L1/L2 meta loss, softmax for KL, none for OT). In
+training (:meth:`Dev.forward_train`), per meta level l in (2, 3, 4) the
+small set is the RoIs assigned to l, and the reliable ("big") set the RoIs
+of the levels above it, pooled 14² from the raw map P_l by the
+single-level grouped crop (K4) with the sample positions of the jitted JAX
 ``crop_and_resize`` (``positions="xla"``) and run through the critic; both
 are reduced to per-class means (:func:`class_mean`). A level without small
 RoIs has its big statistics zeroed. The big side is computed without
-gradient (``BIG_FEAT_DETACH``).
+gradient (``BIG_FEAT_DETACH``). At inference the critic runs only for
+``CLS_MERGE_FEAT`` (:meth:`Dev.small_features`), on the 14² pooling of every
+proposal; the classifier adds its vectors in RoI order.
 
-The make-up block, the poolings and the critic run in the maps' dtype
+The make-up layer, the poolings and the critic run in the maps' dtype
 (bfloat16 in a bfloat16 model); the critic's vectors go to float32 before
 the last op, and the class means and the meta loss are float32, as in JAX.
 
-At inference the critic feeds only ``CLS_MERGE_FEAT``, which the port does
-not have yet, so the inference path does not run it. Each variant outside
-the port raises ``NotImplementedError`` naming itself.
+Each variant outside the port raises ``NotImplementedError`` naming itself.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from torch import nn
 
 from ..ops.roi_align import (assign_fpn_level, crop_and_resize_grouped,
                              multilevel_crop_and_resize)
-from .common import DEV_BN_EPS, Conv2d, SameConv2d, batch_norm
+from .common import DEV_BN_EPS, Conv2d, SameConv2d, SameConvTranspose2d, batch_norm
 
 META_LEVELS = (2, 3, 4)
 
@@ -69,24 +71,43 @@ def big_mask(level_id: int, lvl: torch.Tensor) -> torch.Tensor:
 
 
 class UpsampleBlock(nn.Sequential):
-    """The make-up layer at ``UPSAMPLE_FAC`` 1.0: 3×3 conv, BN, ReLU.
-    ``init_mode`` is ``DEV.UPSAMPLE_INIT``: ``xavier`` (the reference) or
-    ``identity``, under which ``init_weights`` gives the conv the delta
-    kernel, so that the block starts as ``relu(x)``."""
+    """The make-up layer: at ``UPSAMPLE_FAC`` 1.0 a 3×3 conv, at 2.0 a 3×3
+    stride-2 transposed conv (flax ``ConvTranspose`` SAME), then BN (eps
+    1e-5) and ReLU; children ``0`` and ``1`` as in the reference
+    checkpoints. ``init_mode`` is ``DEV.UPSAMPLE_INIT``: ``xavier`` (the
+    reference) or ``identity``, under which ``init_weights`` gives the conv
+    the delta kernel and the transposed conv the bilinear one, so that the
+    block starts as ``relu(x)`` or ``relu(bilinear2×(x))``. With
+    ``residual`` (``DEV.UPSAMPLE_RESIDUAL``) it returns ``base + gate·(y −
+    base)`` around that, with a per-channel float32 ``gate``, zero at init,
+    and ``base`` x or its bilinear 2× upsample, in ``y``'s dtype."""
 
-    def __init__(self, channels: int, factor: float = 1.0, init_mode: str = "xavier"):
+    def __init__(self, channels: int, factor: float = 1.0, init_mode: str = "xavier",
+                 residual: bool = False):
         if init_mode not in ("xavier", "identity"):
             raise ValueError(f"UPSAMPLE_INIT must be xavier|identity, got {init_mode}")
-        if factor != 1.0:
-            raise NotImplementedError(
-                f"DEV.UPSAMPLE_FAC {factor}: only 1.0 is ported")
-        conv = Conv2d(channels, channels, 3, padding=1)
-        conv.delta_init = init_mode == "identity"
+        if factor == 1.0:
+            conv = Conv2d(channels, channels, 3, padding=1)
+        elif factor == 2.0:
+            conv = SameConvTranspose2d(channels, channels, 3, 2)
+        else:
+            raise ValueError(f"UPSAMPLE_FAC must be 1 or 2, got {factor}")
+        conv.identity_init = init_mode == "identity"
         super().__init__(
             conv,
             batch_norm(channels, eps=DEV_BN_EPS, momentum=0.1),
             nn.ReLU(inplace=True),
         )
+        self.factor = factor
+        self.gate = nn.Parameter(torch.zeros(channels)) if residual else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x)
+        if self.gate is None:
+            return y
+        base = x if self.factor == 1.0 else F.interpolate(
+            x, scale_factor=2, mode="bilinear", align_corners=False).to(y.dtype)
+        return base + self.gate.to(y.dtype)[:, None, None] * (y - base)
 
 
 class Critic(nn.Sequential):
@@ -138,18 +159,16 @@ class Dev(nn.Module):
         super().__init__()
         if roi_method != "roi_align":
             raise NotImplementedError(f"ROIS.METHOD {roi_method}")
+        self.upsample = None
         if use_dev:
             if structure != "beta":
                 raise NotImplementedError(f"DEV.STRUCTURE {structure}")
-            if multi_upsampler:
-                raise NotImplementedError("DEV.MULTI_UPSAMPLER")
-            if dis_upsampler:
-                raise NotImplementedError("DEV.DIS_UPSAMPLER")
             if assign_all_scale:
                 raise NotImplementedError("DEV.ASSIGN_BOX_ON_ALL_SCALE")
-            if upsample_residual:
-                raise NotImplementedError("DEV.UPSAMPLE_RESIDUAL")
-            self.upsample = nn.ModuleList([UpsampleBlock(channels, upsample_fac, upsample_init)])
+            if not dis_upsampler:
+                self.upsample = nn.ModuleList([
+                    UpsampleBlock(channels, upsample_fac, upsample_init, upsample_residual)
+                    for _ in range(4 if multi_upsampler else 1)])
             self.feat_extract = Critic(channels, feat_pool_size)
         self.use_dev = use_dev
         self.image_size = image_size
@@ -162,8 +181,13 @@ class Dev(nn.Module):
         self.big_feat_detach = big_feat_detach
 
     def pooling_maps(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """P2..P5 (NCHW) -> the maps RoIs pool from, as contiguous NHWC."""
-        maps = [self.upsample[0](f) for f in feats] if self.use_dev else feats
+        """P2..P5 (NCHW) -> the maps RoIs pool from, as contiguous NHWC: the
+        make-up layer's (block i on level i, or the shared block on every
+        level), or the levels themselves."""
+        maps = feats
+        ups = self.upsample
+        if ups is not None:
+            maps = [ups[i if len(ups) > 1 else 0](f) for i, f in enumerate(feats)]
         return [m.permute(0, 2, 3, 1).contiguous() for m in maps]
 
     def pool(self, maps: Sequence[torch.Tensor], rois: torch.Tensor,
@@ -189,6 +213,21 @@ class Dev(nn.Module):
         if self.loss_choice == "ot":
             return x
         raise ValueError(f"DEV.LOSS_CHOICE {self.loss_choice}")
+
+    def small_features(self, pooled: torch.Tensor, rois: torch.Tensor,
+                       image_size: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The critic's vectors (in training, and at inference for
+        ``CLS_MERGE_FEAT``): pooled [B·R, F, F, C] (each RoI's 14² pooling
+        from the make-up maps) and rois [B, R, 4] -> (small_out [B·R, 1024]
+        float32, the vectors after the last op, zero outside meta levels
+        2-4; [B·R], 1.0 on a meta level), the levels as :meth:`pool`
+        assigns them."""
+        size = image_size or self.image_size
+        lvl = assign_fpn_level(rois.reshape(-1, 4), (size, size), base=self.assign_base)
+        meta = (lvl >= META_LEVELS[0]) & (lvl <= META_LEVELS[-1])
+        act = self.last_op(self.feat_extract(pooled).float())
+        return torch.where(meta[:, None], act, act.new_zeros(())), meta.float()
 
     def forward_train(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
                       roi_gt: torch.Tensor, pool_size: int = 7,
@@ -218,13 +257,14 @@ class Dev(nn.Module):
 
         k = self.num_classes
         lvl = assign_fpn_level(flat, (self.image_size, self.image_size), base=self.assign_base)
-        small_act = self.last_op(self.feat_extract(pooled_mask).float())
-        meta = (lvl >= META_LEVELS[0]) & (lvl <= META_LEVELS[-1])
+        # the critic's vectors, zero off the meta levels, whose rows no small
+        # set holds
+        small_out, on_meta = self.small_features(pooled_mask, rois)
         flat_gt = roi_gt.reshape(-1).to(torch.int64)
         stats = {key: [] for key in ("small_feat", "small_cnt", "big_feat", "big_cnt")}
         for level_id in META_LEVELS:
             small = lvl == level_id
-            feat, cnt = class_mean(small_act, flat_gt, small, k)
+            feat, cnt = class_mean(small_out, flat_gt, small, k)
             stats["small_feat"].append(feat)
             stats["small_cnt"].append(cnt)
             with torch.no_grad():
@@ -238,7 +278,7 @@ class Dev(nn.Module):
                 stats["big_feat"].append(feat * has_small)
                 stats["big_cnt"].append(cnt * has_small)
         out = {key: torch.stack(v) for key, v in stats.items()}
-        out["big_loss"] = small_act.new_zeros(len(META_LEVELS))
-        out["small_out"] = torch.where(meta[:, None], small_act, small_act.new_zeros(()))
-        out["small_gt"] = torch.where(meta, flat_gt, 0).float()
+        out["big_loss"] = small_out.new_zeros(len(META_LEVELS))
+        out["small_out"] = small_out
+        out["small_gt"] = torch.where(on_meta > 0, flat_gt, 0).float()
         return pooled_cls, pooled_mask, out

@@ -44,16 +44,18 @@ LAYER_REGEX = {
 
 def flax_paths(model: nn.Module) -> Dict[str, str]:
     """Port parameter name -> the JAX package's flax parameter path
-    (``fpn.C1.1.weight`` -> ``backbone/c1_bn/BatchNorm_0/scale``)."""
+    (``fpn.C1.1.weight`` -> ``backbone/c1_bn/BatchNorm_0/scale``,
+    ``dev_roi.upsample.0.gate`` -> ``dev/upsample0/gate``)."""
     out = {}
     for mod_name, mod in model.named_modules():
         bn = isinstance(mod, nn.BatchNorm2d)
+        transposed = isinstance(mod, nn.ConvTranspose2d)
         for leaf, _ in mod.named_parameters(recurse=False):
             if bn:
                 flax_leaf = {"weight": "BatchNorm_0/scale", "bias": "BatchNorm_0/bias"}[leaf]
             else:
-                flax_leaf = {"weight": "kernel", "bias": "bias"}[leaf]
-            out[f"{mod_name}.{leaf}"] = f"{flax_module_path(mod_name)}/{flax_leaf}"
+                flax_leaf = {"weight": "kernel", "bias": "bias", "gate": "gate"}[leaf]
+            out[f"{mod_name}.{leaf}"] = f"{flax_module_path(mod_name, transposed)}/{flax_leaf}"
     return out
 
 

@@ -12,7 +12,11 @@ Layouts: flax conv ``[kh, kw, I, O]`` -> torch ``[O, I, kh, kw]``; flax
 ``ConvTranspose`` ``[kh, kw, I, O]`` (which does not flip its kernel) ->
 torch ``ConvTranspose2d`` ``[I, O, kh, kw]`` spatially flipped; flax Dense
 ``[I, O]`` -> torch ``[O, I]``; BN ``scale/bias`` + ``mean/var`` ->
-``weight/bias`` + ``running_mean/running_var``.
+``weight/bias`` + ``running_mean/running_var``; the make-up layer's
+``gate`` as it is. The layout follows the flax path: the port name
+``dev_roi.upsample.{m}.0`` holds a conv at ``UPSAMPLE_FAC`` 1 (flax
+``dev/upsample{m}/conv``) and a transposed conv at 2 (``.../deconv``), as
+the reference checkpoints name both.
 
 It is strict: a flax leaf that maps to no port name raises. Loading the
 result with ``load_state_dict(strict=True)`` checks the other direction,
@@ -50,8 +54,9 @@ _MODULES = (
     (r"mask/upsample", r"mask.deconv"),
     (r"mask/logits", r"mask.conv5"),
     (r"mask/((?:conv|bn)\d)", r"mask.\1"),
-    (r"dev/upsample(\d)/conv", r"dev_roi.upsample.\1.0"),
+    (r"dev/upsample(\d)/(?:de)?conv", r"dev_roi.upsample.\1.0"),
     (r"dev/upsample(\d)/bn", r"dev_roi.upsample.\1.1"),
+    (r"dev/upsample(\d)", r"dev_roi.upsample.\1"),
     (r"dev/critic/conv1", r"dev_roi.feat_extract.0"),
     (r"dev/critic/bn1", r"dev_roi.feat_extract.1"),
     (r"dev/critic/conv2", r"dev_roi.feat_extract.3"),
@@ -88,6 +93,7 @@ _FLAX_MODULES = (
     (r"mask\.((?:conv|bn)\d)", r"mask/\1"),
     (r"dev_roi\.upsample\.(\d)\.0", r"dev/upsample\1/conv"),
     (r"dev_roi\.upsample\.(\d)\.1", r"dev/upsample\1/bn"),
+    (r"dev_roi\.upsample\.(\d)", r"dev/upsample\1"),
     (r"dev_roi\.feat_extract\.0", r"dev/critic/conv1"),
     (r"dev_roi\.feat_extract\.1", r"dev/critic/bn1"),
     (r"dev_roi\.feat_extract\.3", r"dev/critic/conv2"),
@@ -104,8 +110,10 @@ _FLAX_MODULES = (
     (r"fpn\.p(\d)_ot\.critic\.3", r"fpn/p\1_ot/critic_conv2"),
     (r"fpn\.p(\d)_ot\.critic\.4", r"fpn/p\1_ot/critic_bn2"),
 )
-# flax ConvTranspose layers (port module names, full match)
-_TRANSPOSED = r"mask\.deconv|fpn\.p\d_ot\.G_net\.0"
+# the transposed convs whose port name also holds a conv: their flax path
+_FLAX_TRANSPOSED = ((r"dev_roi\.upsample\.(\d)\.0", r"dev/upsample\1/deconv"),)
+# flax ConvTranspose layers (flax module paths, full match)
+_TRANSPOSED = r"mask/upsample|fpn/p\d_ot/g_deconv|dev/upsample\d/deconv"
 _BN_LEAVES = {"scale": "weight", "bias": "bias",
               "mean": "running_mean", "var": "running_var"}
 
@@ -128,24 +136,26 @@ def _port_module(path: str) -> str:
     raise ValueError(f"from_jax_params: no port module for flax {path!r}")
 
 
-def flax_module_path(module: str) -> str:
+def flax_module_path(module: str, transposed: bool = False) -> str:
     """The flax module path of a port module name (``fpn.C4.0.conv1`` ->
-    ``backbone/c4/block0/conv1``)."""
-    for pattern, template in _FLAX_MODULES:
+    ``backbone/c4/block0/conv1``); ``transposed`` for a transposed conv
+    (``dev_roi.upsample.0.0`` -> ``dev/upsample0/deconv``)."""
+    for pattern, template in (_FLAX_TRANSPOSED if transposed else ()) + _FLAX_MODULES:
         m = re.fullmatch(pattern, module)
         if m:
             return m.expand(template)
     raise ValueError(f"flax_module_path: no flax module for port {module!r}")
 
 
-def _port_tensor(module: str, leaf: str, value: np.ndarray) -> np.ndarray:
+def _port_tensor(path: str, leaf: str, value: np.ndarray) -> np.ndarray:
+    """A flax leaf of module ``path`` in the port's layout."""
     if leaf != "kernel":
         return value
     if value.ndim == 2:                            # Dense [I, O]
         return value.T
     if value.ndim == 3:                            # 1-D Conv [k, I, O]
         return np.transpose(value, (2, 1, 0))
-    if re.fullmatch(_TRANSPOSED, module):          # ConvTranspose
+    if re.fullmatch(_TRANSPOSED, path):            # ConvTranspose
         return np.transpose(value[::-1, ::-1], (2, 3, 0, 1))
     return np.transpose(value, (3, 2, 0, 1))       # Conv
 
@@ -159,15 +169,18 @@ def from_jax_params(params, batch_stats) -> Dict[str, torch.Tensor]:
             is_bn = bool(mod) and mod[-1] == "BatchNorm_0"
             if is_bn:
                 mod = mod[:-1]
-            module = _port_module("/".join(mod))
+            flax_path = "/".join(mod)
+            module = _port_module(flax_path)
             if is_bn:
                 name = _BN_LEAVES[leaf]
                 sd[f"{module}.num_batches_tracked"] = torch.tensor(0)
             elif leaf in ("kernel", "bias"):
                 name = "weight" if leaf == "kernel" else "bias"
+            elif leaf == "gate" and re.fullmatch(r"dev/upsample\d", flax_path):
+                name = "gate"
             else:
                 raise ValueError(f"from_jax_params: unknown leaf {'/'.join(path)!r}")
-            arr = np.ascontiguousarray(_port_tensor(module, leaf, value), dtype=np.float32)
+            arr = np.ascontiguousarray(_port_tensor(flax_path, leaf, value), dtype=np.float32)
             sd[f"{module}.{name}"] = torch.from_numpy(arr)
     return sd
 

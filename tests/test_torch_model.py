@@ -210,13 +210,16 @@ def test_dev_at_inference_matches_flax(use_dev):
     assert_rel(got_mask, want_mask)
 
 
-@pytest.mark.parametrize("variant", ["DEV.CLS_MERGE_FEAT", "DEV.UPSAMPLE_FAC",
-                                     "DEV.MULTI_UPSAMPLER", "DEV.DIS_UPSAMPLER",
-                                     "DEV.ASSIGN_BOX_ON_ALL_SCALE", "ROIS.METHOD"])
-def test_unported_variants_raise(variant):
-    value = {"DEV.UPSAMPLE_FAC": "2.0", "ROIS.METHOD": "roi_pool"}.get(variant, "True")
+@pytest.mark.parametrize("variant, value, error", [
+    ("DEV.ASSIGN_BOX_ON_ALL_SCALE", "True", NotImplementedError),
+    ("ROIS.METHOD", "roi_pool", NotImplementedError),
+    ("RPN.ANCHOR_STRIDE", "2", NotImplementedError),
+    ("DEV.STRUCTURE", "alpha", NotImplementedError),
+    ("DEV.UPSAMPLE_FAC", "3.0", ValueError),            # as JAX raises
+])
+def test_unported_variants_raise(variant, value, error):
     cfg = build_config(opts=list(FLAGSHIP_OVERRIDES) + [variant, value])
-    with pytest.raises(NotImplementedError, match=variant.split(".")[1]):
+    with pytest.raises(error, match=variant.split(".")[1]):
         InterNet.from_config(cfg)
 
 
@@ -356,7 +359,9 @@ def test_weight_round_trip_through_reference_names(slice_pair):
 
 def test_from_jax_params_rejects_unknown_leaves():
     with pytest.raises(ValueError, match="no port module"):
-        from_jax_params({"dev": {"upsample0": {"deconv": {"kernel": np.zeros((3, 3, 4, 4))}}}}, {})
+        from_jax_params({"dev": {"big_fc": {"kernel": np.zeros((1024, 4))}}}, {})
+    with pytest.raises(ValueError, match="unknown leaf"):
+        from_jax_params({"dev": {"critic": {"conv1": {"gate": np.zeros(4)}}}}, {})
 
 
 # --- host steps: mold and unmold ---------------------------------------------------------
