@@ -160,6 +160,32 @@ Phases, each of which must pass:
    identity`` + linear_add at factor 2; ``DIS_UPSAMPLER`` with the merge):
    the second stage on the same proposals and one float32 train step, to
    the tolerances of 8.
+19. train_options_path: the flagship recipe at full width in bfloat16
+   under each of two option sets of ROADMAP A5, one 'all' stage of 2 steps
+   through ``Trainer``: A (``TRAIN.OPTIM_METHOD adam``, ``TRAIN.BN_LEARN``,
+   ``DEV.BIG_SUPERVISE``, ``DEV.BIG_FEAT_DETACH False``, ``DEV.BIG_FC_INIT
+   coco_pretrain``) and B (``TRAIN.OPTIM_METHOD rmsprop``,
+   ``DEV.DIS_REG_LOSS``, ``DEV.BASELINE``), counted from 0: per step under A
+   K1 2, K4 3, K3 5 of which 3 in its ``xla`` mode (the big-set crops'
+   gradient into P2-P4), K2 at least 1; under B K1 2, K4 0, K3 2, K2 at
+   least 1; finite losses, A's big loss, B's regression losses 0, every BN
+   statistic moved under A, big_fc seeded from the classifier, every K4
+   call bit-equal to its plain version; K3's ``xla`` mode on the last
+   step's three big-set cotangents (widened to float32) within 1e-5 of its
+   plain version in float64 and of the autograd of
+   ``crop_and_resize_grouped_plain(..., positions="xla")``, bit-equal over
+   two launches, its plan the plain plan, timed beside its plain version,
+   its bytes bound and grid_sample's backward (its entry in the kernel
+   line); each set's peak memory; each set's step paired with the
+   flagship's SGD step in turns, and its device time by kernel family; then
+   each set on a small float32 model card
+   against CPU: losses within 1e-4 relative, the buffer within 1e-4, BN
+   running statistics within 1e-4, the parameters within 1e-5 of those the
+   CPU's optimizer gives from the card's gradients, and the optimizer's
+   ``mu`` and ``nu``: under B (as its root) within 1e-5, under A (BN
+   learning makes these gradients ill-conditioned at this size, ROADMAP §C)
+   as one vector within 1e-5 of its norm plus four times the CPU's own
+   float32 error.
 ``roi_single`` also runs the ``crop`` sweep on a bfloat16 map (K4 and K5
 bit-equal to their plain versions), and ``window_probe`` K6 on C = 3 and
 on a map one channel off a pair (one channel a lane).
@@ -224,6 +250,12 @@ OT_RECIPE = ["TRAIN.LR_WARM_UP", "False", "TRAIN.CLIP_GRAD", "True", "TRAIN.END2
              "TRAIN.BATCH_SIZE", "4", "DEV.SWITCH", "True", "DEV.BUFFER_SIZE", "1",
              "DEV.LOSS_CHOICE", "ot", "DEV.OT_ONE_DIM_FORM", "conv", "DEV.LOSS_FAC", "10.0",
              "DEV.STRUCTURE", "beta", "DEV.UPSAMPLE_FAC", "1.0"]
+# the training options of ROADMAP A5 as two option sets (train_options_path)
+OPTION_SETS = {
+    "A": ["TRAIN.OPTIM_METHOD", "adam", "TRAIN.BN_LEARN", "True", "DEV.BIG_SUPERVISE", "True",
+          "DEV.BIG_FEAT_DETACH", "False", "DEV.BIG_FC_INIT", "coco_pretrain"],
+    "B": ["TRAIN.OPTIM_METHOD", "rmsprop", "DEV.DIS_REG_LOSS", "True", "DEV.BASELINE", "True"],
+}
 # the kernels a train step launches, by their launch counters
 TRAIN_KERNELS = ("roi_align_fwd", "crop_and_resize_grouped", "roi_align_bwd", "nms_alive")
 # Output-conv scales of P2, P3 and P4 for the train path's random model:
@@ -413,17 +445,26 @@ def covered_pixels(torch, origins, shape, sy, sx) -> int:
 
 class Recorder:
     """Wrap a module-level kernel wrapper so the main path's calls are kept
-    (their arguments), while the original wrapper still launches and counts."""
+    (their arguments), while the original wrapper still launches and counts.
+    A call the wrapper makes of itself (the bfloat16 entry of K4 and K5
+    calling its float32 self on the widened map) is not kept again."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
         self.original = getattr(module, name)
         self.calls = []
+        self.inside = False
 
     def __enter__(self):
         def recording(*args, **kwargs):
+            if self.inside:
+                return self.original(*args, **kwargs)
             self.calls.append((args, kwargs))
-            return self.original(*args, **kwargs)
+            self.inside = True
+            try:
+                return self.original(*args, **kwargs)
+            finally:
+                self.inside = False
         setattr(self.module, self.name, recording)
         return self
 
@@ -863,13 +904,17 @@ def main() -> int:
                 and launches["crop_and_resize_grouped"] == 3 * steps
                 and launches["roi_align_bwd"] == 2 * steps and launches["nms_alive"] >= steps)
 
+    k4_wrapper = roi_ops.crop_and_resize_grouped     # itself, not a Recorder's wrapping
+
     def held_k4(calls):
         """The values of recorded K4 calls that differ from their plain
-        version on the same tensors (each call's map, boxes and rounding)."""
+        version on the same tensors (each call's map, boxes and rounding),
+        called through the K4 wrapper itself, so that a Recorder of it keeps
+        no call of the check's."""
         differ, counted = 0, cuda_build.launches["crop_and_resize_grouped"]
         with torch.no_grad():
-            for args, kwargs in calls:
-                got = roi_ops.crop_and_resize_grouped(*args, **kwargs)
+            for args, kwargs in list(calls):
+                got = k4_wrapper(*args, **kwargs)
                 want = roi_ops.crop_and_resize_grouped_plain(*args, **kwargs)
                 differ += int((got != want).sum())
         cuda_build.launches["crop_and_resize_grouped"] = counted   # checks do not count
@@ -885,7 +930,6 @@ def main() -> int:
 
         from feature_intertwiner_tpu_torch.data import synthetic
         from feature_intertwiner_tpu_torch.data.loader import DetectionDataset, Loader
-        from feature_intertwiner_tpu_torch.models import intertwiner
         from feature_intertwiner_tpu_torch.train import workflow
 
         tcfg = build_config("meta_105_quick_1", "train", opts=list(FLAGSHIP_OVERRIDES) + [
@@ -944,7 +988,7 @@ def main() -> int:
         try:
             with Recorder(roi_ops, "roi_align_bwd") as bwd_rec, \
                     Recorder(roi_ops, "roi_align_fwd") as fwd_rec, \
-                    Recorder(intertwiner, "crop_and_resize_grouped") as k4_rec, \
+                    Recorder(roi_ops, "crop_and_resize_grouped") as k4_rec, \
                     Recorder(nms_ops, "nms_alive") as nms_rec:
                 cuda_build.launches.clear()
                 for stage in ("heads", "4+", "all"):
@@ -1061,14 +1105,15 @@ def main() -> int:
         args = profile_roi.grid_sample_backward_args([p2], boxes, crop, g)
         return cuda_ms(torch, lambda: profile_roi.grid_sample_grad(*args), 20)
 
-    def bwd_errors(got, g, shapes, boxes, bidx, lidx, crop):
+    def bwd_errors(got, g, shapes, boxes, bidx, lidx, crop, xla=False):
         """A K3 result against its plain version: (largest gradient, error
         against the plain version in float64, the exact sum, relative to
         it; the same against the plain version in float32; the float32
         plain version's own error against float64). The float32 plain
         version sums a crowded cell with float atomics in no fixed order."""
-        want = roi_ops.multilevel_gather_bwd_plain(g.double(), shapes, boxes, bidx, lidx, crop)
-        want32 = roi_ops.multilevel_gather_bwd_plain(g, shapes, boxes, bidx, lidx, crop)
+        want = roi_ops.multilevel_gather_bwd_plain(g.double(), shapes, boxes, bidx, lidx, crop,
+                                                   xla)
+        want32 = roi_ops.multilevel_gather_bwd_plain(g, shapes, boxes, bidx, lidx, crop, xla)
         torch.cuda.synchronize()
         top = max(float(w.abs().max()) for w in want)
 
@@ -1079,18 +1124,19 @@ def main() -> int:
         return top, err(got, want), err(got, want) / scale, err(got, want32) / scale, \
             err(want32, want) / scale
 
-    def hold_bwd(label, g, shapes, boxes, bidx, lidx, crop):
-        """One K3 call within 1e-5 of the largest gradient of its plain
-        version in float64 (beside its distance to the float32 plain
-        version), two launches bit-equal, its plan equal to the plain plan.
-        Returns its error against float64 and its plan."""
-        got, plan = roi_ops.roi_align_bwd_with_plan(g, shapes, boxes, bidx, lidx, crop)
-        again = roi_ops.roi_align_bwd(g, shapes, boxes, bidx, lidx, crop)
+    def hold_bwd(label, g, shapes, boxes, bidx, lidx, crop, xla=False):
+        """One K3 call (in its ``xla`` mode or not) within 1e-5 of the
+        largest gradient of its plain version in float64 (beside its
+        distance to the float32 plain version), two launches bit-equal, its
+        plan equal to the plain plan. Returns its error against float64 and
+        its plan."""
+        got, plan = roi_ops.roi_align_bwd_with_plan(g, shapes, boxes, bidx, lidx, crop, xla)
+        again = roi_ops.roi_align_bwd(g, shapes, boxes, bidx, lidx, crop, xla)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        top, a_err, rel, rel32, plain32 = bwd_errors(got, g, shapes, boxes, bidx, lidx, crop)
+        top, a_err, rel, rel32, plain32 = bwd_errors(got, g, shapes, boxes, bidx, lidx, crop, xla)
         del got, again
-        plain_plan = roi_ops.bwd_work_plan(shapes, boxes, bidx, lidx, crop)
+        plain_plan = roi_ops.bwd_work_plan(shapes, boxes, bidx, lidx, crop, xla=xla)
         log(f"  roi_align_bwd {label} n={boxes.shape[0]} crop={crop}: rel err {rel:.3g} "
             f"against the float64 plain version (max |grad| {top:.4g}; against the float32 "
             f"plain version {rel32:.3g}, which is {plain32:.3g} from float64), "
@@ -1103,15 +1149,15 @@ def main() -> int:
                 f"the kernel's plan {plan} is not the plain plan {plain_plan} ({label})")
         return a_err, plan
 
-    def check_bwd(label, g, shapes, boxes, bidx, lidx, crop, images):
+    def check_bwd(label, g, shapes, boxes, bidx, lidx, crop, images, xla=False):
         """One K3 call held by :func:`hold_bwd`, then timed beside its plain
         version, its bytes bound and grid_sample's backward. Returns its
         numbers."""
-        a_err, _ = hold_bwd(label, g, shapes, boxes, bidx, lidx, crop)
-        k_ms = cuda_ms(torch, lambda: roi_ops.roi_align_bwd(g, shapes, boxes, bidx, lidx, crop),
-                       20)
+        a_err, _ = hold_bwd(label, g, shapes, boxes, bidx, lidx, crop, xla)
+        k_ms = cuda_ms(torch, lambda: roi_ops.roi_align_bwd(g, shapes, boxes, bidx, lidx, crop,
+                                                            xla), 20)
         p_ms = cuda_ms(torch, lambda: roi_ops.multilevel_gather_bwd_plain(
-            g, shapes, boxes, bidx, lidx, crop), 3)
+            g, shapes, boxes, bidx, lidx, crop, xla), 3)
         l_ms = grid_sample_bwd_ms(shapes, boxes, crop, g, images)
         nbytes = bwd_bytes(g, shapes)
         b_ms = nbytes / H100_BYTES_PER_S * 1e3
@@ -1329,7 +1375,8 @@ def main() -> int:
         held to its own rounding. ``watch(model, runs, key)`` may wrap the
         model before its step. With ``meta_free``, also a CPU step with the
         meta loss gated off (``cpu_meta_free``). Returns {key: (metrics,
-        parameters, buffer, counts)} for the keys ``cuda`` and ``cpu``."""
+        parameters, buffer, counts)} for the keys ``cuda`` and ``cpu``, and
+        each run's TrainState under ``<key>_state``."""
         import numpy as np
         from feature_intertwiner_tpu_torch.train.optim import set_trainable
         from feature_intertwiner_tpu_torch.train.step import create_train_state, train_step
@@ -1381,6 +1428,7 @@ def main() -> int:
             runs[key] = ({k: float(v) for k, v in metrics.items()},
                          {n: p.detach().cpu() for n, p in model.named_parameters()},
                          st.buffer.cpu(), st.buffer_cnt.cpu())
+            runs[f"{key}_state"] = st
         return runs
 
     small_opts = list(FLAGSHIP_OVERRIDES) + SMALL_OPTS
@@ -2106,7 +2154,6 @@ def main() -> int:
 
         from feature_intertwiner_tpu_torch.data import synthetic
         from feature_intertwiner_tpu_torch.data.loader import DetectionDataset, Loader
-        from feature_intertwiner_tpu_torch.models import intertwiner
         from feature_intertwiner_tpu_torch.train import workflow
 
         tcfg = build_config("meta_105_quick_1", "train", opts=list(FLAGSHIP_OVERRIDES) + [
@@ -2141,7 +2188,7 @@ def main() -> int:
         try:
             with Recorder(roi_ops, "roi_align_bwd") as bwd_rec, \
                     Recorder(roi_ops, "roi_align_fwd") as fwd_rec, \
-                    Recorder(intertwiner, "crop_and_resize_grouped") as k4_rec:
+                    Recorder(roi_ops, "crop_and_resize_grouped") as k4_rec:
                 cuda_build.launches.clear()
                 workflow.train_model(trainer, loader, "all")
                 launches = {k: cuda_build.launches[k] for k in TRAIN_KERNELS}
@@ -2488,7 +2535,6 @@ def main() -> int:
 
         from feature_intertwiner_tpu_torch.data import synthetic
         from feature_intertwiner_tpu_torch.data.loader import DetectionDataset, Loader
-        from feature_intertwiner_tpu_torch.models import intertwiner
         from feature_intertwiner_tpu_torch.models import ot as ot_mod
         from feature_intertwiner_tpu_torch.train import workflow
 
@@ -2535,7 +2581,7 @@ def main() -> int:
 
             workflow.train_step = recorded_step
             try:
-                with Recorder(intertwiner, "crop_and_resize_grouped") as k4_rec:
+                with Recorder(roi_ops, "crop_and_resize_grouped") as k4_rec:
                     cuda_build.launches.clear()
                     workflow.train_model(trainer, loader, "all")
                     launches = {k: cuda_build.launches[k] for k in TRAIN_KERNELS}
@@ -2762,7 +2808,6 @@ def main() -> int:
 
         from feature_intertwiner_tpu_torch.data import synthetic
         from feature_intertwiner_tpu_torch.data.loader import DetectionDataset, Loader
-        from feature_intertwiner_tpu_torch.models import intertwiner
         from feature_intertwiner_tpu_torch.train import workflow
 
         label = f"UP2 TRAIN [{str(dtype).split('.')[-1]}]"
@@ -2800,7 +2845,7 @@ def main() -> int:
         try:
             with Recorder(roi_ops, "roi_align_bwd") as bwd_rec, \
                     Recorder(roi_ops, "roi_align_fwd") as fwd_rec, \
-                    Recorder(intertwiner, "crop_and_resize_grouped") as k4_rec:
+                    Recorder(roi_ops, "crop_and_resize_grouped") as k4_rec:
                 cuda_build.launches.clear()
                 workflow.train_model(trainer, loader, "all")
                 launches = {k: cuda_build.launches[k] for k in TRAIN_KERNELS}
@@ -2933,6 +2978,299 @@ def main() -> int:
             small_step_checked(small_opts + variant, f"UP2 REFERENCE {name}")
 
     phase("dev_up2_merge_path", dev_up2_merge_path)
+
+    # 19. the training options of ROADMAP A5 ------------------------------------------
+    def options_launches_ok(name, launches, steps):
+        """Per train step: K1 2, K2 at least 1, and under A K4 3 and K3 5
+        (3 of them the big-set gradients in the ``xla`` mode), under B (no
+        critic) K4 0 and K3 2."""
+        big = name == "A"
+        return (launches["roi_align_fwd"] == 2 * steps and launches["nms_alive"] >= steps
+                and launches["crop_and_resize_grouped"] == (3 if big else 0) * steps
+                and launches["roi_align_bwd"] == (5 if big else 2) * steps
+                and launches["roi_align_bwd_xla"] == (3 if big else 0) * steps)
+
+    def options_train(name):
+        """One 'all' stage of 2 steps of the flagship recipe under option set
+        ``name`` through Trainer/train_model in bfloat16, counted from 0:
+        launches by :func:`options_launches_ok`; finite losses; under A the
+        big loss on, big_fc seeded from the classifier and every BN's
+        statistics moved, under B the regression losses 0; every K4 call
+        bit-equal to its plain version; the peak memory. Returns the
+        trainer, the loader, the launches, the last step's K3 ``xla`` calls
+        and the peak memory in GiB."""
+        import shutil
+        import tempfile
+
+        from feature_intertwiner_tpu_torch.data import synthetic
+        from feature_intertwiner_tpu_torch.data.loader import DetectionDataset, Loader
+        from feature_intertwiner_tpu_torch.train import workflow
+
+        label = f"OPTIONS {name} TRAIN [bfloat16]"
+        tcfg = build_config("meta_105_quick_1", "train", opts=list(FLAGSHIP_OVERRIDES)
+                            + OPTION_SETS[name] + [
+                                "TRAIN.DO_VALIDATION", "False", "TRAIN.SCHEDULE", "[0, 0, 1]",
+                                "TRAIN.KEEP_CHECKPOINTS", "1", "CTRL.SHOW_INTERVAL", "1"])
+        require(tcfg.TRAIN.BATCH_SIZE == 4 and tcfg.ROIS.TRAIN_ROIS_PER_IMAGE == 200
+                and tcfg.DATA.IMAGE_MAX_DIM == 1024 and tcfg.DATASET.NUM_CLASSES == 81
+                and tcfg.MODEL.BACKBONE == "resnet101" and tcfg.TPU.COMPUTE_DTYPE == "bfloat16",
+                f"{label}: the recipe is not at full width in bfloat16")
+        folder = tempfile.mkdtemp(prefix=f"chip_smoke_options{name}_",
+                                  dir=os.path.join(ROOT, "build"))
+        tcfg.MISC.RESULT_FOLDER = folder
+        tcfg.MISC.LOG_FILE = os.path.join(folder, "log.txt")
+        data = synthetic.generate(num_images=8, **TRAIN_DATA)
+        loader = Loader(DetectionDataset(data, tcfg, augment=True, seed=tcfg.MISC.SEED),
+                        batch_size=tcfg.TRAIN.BATCH_SIZE, shuffle=True, seed=tcfg.MISC.SEED)
+        model = temper_fpn(seeded_model(build_model, tcfg, seed=0, dtype=torch.bfloat16))
+        trainer = workflow.Trainer(model, tcfg).resume()
+        if name == "A":
+            require(torch.equal(model.dev_roi.big_fc_layer.weight,
+                                model.classifier.linear_class.weight),
+                    f"{label}: DEV.BIG_FC_INIT coco_pretrain did not seed big_fc")
+        stats0 = {k: v.clone() for k, v in model.state_dict().items()
+                  if k.endswith(("running_mean", "running_var"))}
+        steps, k4_mism, step_fn = [], [], workflow.train_step
+        counters = TRAIN_KERNELS + ("roi_align_bwd_xla",)
+
+        def recorded_step(st, cfg_, batch, lr, meta_gate, generator=None, draws=None):
+            counts0 = dict(cuda_build.launches)
+            for rec in (bwd_rec, k4_rec):
+                rec.calls.clear()               # the last step's calls only
+            metrics = step_fn(st, cfg_, batch, lr, meta_gate, generator, draws)
+            torch.cuda.synchronize()
+            steps.append(dict({k: float(v) for k, v in metrics.items()}, launches={
+                k: cuda_build.launches[k] - counts0.get(k, 0) for k in counters}))
+            k4_mism.append(held_k4(k4_rec.calls))
+            return metrics
+
+        workflow.train_step = recorded_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with Recorder(roi_ops, "roi_align_bwd") as bwd_rec, \
+                    Recorder(roi_ops, "crop_and_resize_grouped") as k4_rec:
+                cuda_build.launches.clear()
+                workflow.train_model(trainer, loader, "all")
+                launches = {k: cuda_build.launches[k] for k in counters}
+        finally:
+            workflow.train_step = step_fn
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"{label} LAUNCHES " + json.dumps(launches))
+        for i, s_ in enumerate(steps):
+            log(f"{label} step {i + 1} ['all'] "
+                + " ".join(f"{k.replace('_loss', '')} {s_[k]:.5g}" for k in (
+                    "total_loss", "rpn_class_loss", "rpn_bbox_loss", "mrcnn_class_loss",
+                    "mrcnn_bbox_loss", "mrcnn_mask_loss", "meta_loss", "big_loss"))
+                + f" | positives {s_['positive_rois']:.0f} | launches {s_['launches']}")
+        require(len(steps) == 2 and options_launches_ok(name, launches, 2),
+                f"{label} launches {launches}")
+        for s_ in steps:
+            require(options_launches_ok(name, s_["launches"], 1),
+                    f"{label} step launches {s_['launches']}")
+            require(all(math.isfinite(s_[k]) for k in s_ if k.endswith("_loss")),
+                    f"{label}: a non-finite loss")
+        if name == "A":
+            require(all(s_["big_loss"] > 0 for s_ in steps), f"{label}: no big loss")
+            moved = [k for k, v in stats0.items() if not torch.equal(model.state_dict()[k], v)]
+            require(len(moved) == len(stats0), f"{label}: {len(stats0) - len(moved)} BN "
+                    "statistics did not move")
+        else:
+            require(all(s_[k] == 0.0 for s_ in steps for k in (
+                "rpn_bbox_loss", "mrcnn_bbox_loss", "mrcnn_mask_loss")),
+                f"{label}: a regression loss is not 0 under DEV.DIS_REG_LOSS")
+            require(model.dev_roi.upsample is not None
+                    and not hasattr(model.dev_roi, "feat_extract"),
+                    f"{label}: the baseline has a critic or no make-up layer")
+        require(sum(k4_mism) == 0, f"{label}: K4 differs from its plain version")
+        require(all(m.training is False for m in model.modules()),
+                f"{label}: the model left the step in training mode")
+        xla_calls = [(a, k) for a, k in bwd_rec.calls if k.get("xla")]
+        log(f"{label} peak memory {peak_gb:.2f} GiB (torch.cuda.max_memory_allocated); K4 "
+            f"against its plain version on each step's tensors: {sum(k4_mism)} values differ")
+        del bwd_rec, k4_rec
+        shutil.rmtree(folder, ignore_errors=True)
+        return trainer, loader, launches, xla_calls, peak_gb
+
+    def hold_k3_xla(calls):
+        """K3's ``xla`` mode on the last step's three big-set cotangents,
+        widened to float32: :func:`check_bwd` (within 1e-5 of its plain
+        version in float64, two launches bit-equal, the plain plan, timed
+        beside its plain version, its bytes bound and grid_sample's
+        backward), and within 1e-5 of the largest gradient of the autograd
+        of ``crop_and_resize_grouped_plain(..., positions="xla")`` in
+        float64; timed too as the step calls it (bfloat16). Returns the
+        three calls' sums."""
+        k3 = dict(abs=0.0, ms=0.0, plain_ms=0.0, lib_ms=0.0, bytes=0, ops=0, ms_entry=0.0,
+                  autograd=0.0)
+        require(len(calls) == 3, f"OPTIONS A: {len(calls)} K3 xla calls in the last step")
+        for args, kwargs in calls:
+            g, shapes, boxes, bidx, lidx, crop = args[:6]
+            b, h, w, c = shapes[0]
+            r = check_bwd(f"xla mode, big set {h}x{w}", g.float(), shapes, boxes, bidx, lidx,
+                          crop, b, xla=True)
+            for key in ("ms", "plain_ms", "lib_ms", "bytes"):
+                k3[key] += r[key]
+            k3["abs"] = max(k3["abs"], r["abs"])
+            k3["ms_entry"] += cuda_ms(torch, lambda: roi_ops.roi_align_bwd(*args, **kwargs), 10)
+            _, _, _, valid = roi_ops.tap_rows(shapes, boxes, bidx, lidx, crop, xla=True)
+            k3["ops"] += int(valid.sum()) * c * ROI_BWD_OPS_PER_VALUE
+            got = roi_ops.roi_align_bwd(g.float(), shapes, boxes, bidx, lidx, crop, xla=True)[0]
+            with torch.enable_grad():
+                image = torch.zeros(shapes[0], dtype=torch.float64, device="cuda",
+                                    requires_grad=True)
+                nb = boxes.shape[0] // b
+                out = roi_ops.crop_and_resize_grouped_plain(image, boxes.view(b, nb, 4), crop,
+                                                            positions="xla")
+                (want,) = torch.autograd.grad(out, image, g.double().view(out.shape))
+            err = float((got.double() - want).abs().max() / want.abs().max())
+            k3["autograd"] = max(k3["autograd"], err)
+            log(f"  roi_align_bwd xla mode {h}x{w}: against the autograd of the plain crop "
+                f"{err:.3g} of its largest gradient")
+            require(err <= 1e-5, f"K3's xla mode differs from the autograd of the plain crop "
+                    f"by {err} ({h}x{w})")
+        return k3
+
+    def options_small(name):
+        """Option set ``name`` on a small float32 model, one train step card
+        against CPU (:func:`small_step_card_and_cpu`): losses within 1e-4
+        relative, the buffer within 1e-4, BN running statistics within 1e-4
+        of each tensor's largest magnitude, the card's parameters within
+        1e-5 of those the CPU's optimizer gives from the card's gradients;
+        under B the optimizer's ``mu`` and ``nu`` (as its root) within 1e-5
+        of the CPU's; under A, where BN learning makes those gradients
+        ill-conditioned at this size (ROADMAP §C), ``mu`` and ``nu`` as one
+        vector within 1e-5 of its norm plus four times the CPU's own float32
+        error (its distance from a CPU step of float64 batch moments)."""
+        from feature_intertwiner_tpu_torch.models import common
+        from feature_intertwiner_tpu_torch.train.optim import (OptaxChain, moment_slots,
+                                                              within_own_error)
+
+        label = f"OPTIONS {name} REFERENCE"
+        tsmall = build_config("smoke_small", "train", opts=small_opts + OPTION_SETS[name] + [
+            "ROIS.ASSIGN_ANCHOR_BASE", "56.0"])
+        runs = small_step_card_and_cpu(tsmall)
+        (mg, _, bg, cg), (mc, _, bc, cc) = runs["cuda"], runs["cpu"]
+        sg, sc = runs["cuda_state"], runs["cpu_state"]
+        loss_rel = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc
+                       if k.endswith("_loss"))
+        buf_err = max(float((bg - bc).abs().max()), float((cg - cc).abs().max()))
+        sdg, sdc = sg.model.state_dict(), sc.model.state_dict()
+        stat_rel = max([float((sdg[k].cpu() - sdc[k]).abs().max()
+                              / sdc[k].abs().max().clamp_min(1e-12))
+                        for k in sdc if k.endswith(("running_mean", "running_var"))])
+        # the CPU's optimizer, from the same starting weights, on the card's gradients
+        start = seeded_model(build_model, tsmall, seed=3, device="cpu")
+        biases = torch.Generator().manual_seed(4)
+        with torch.no_grad():
+            for n_, p in start.named_parameters():
+                if n_.endswith("bias"):
+                    p.copy_(torch.randn(p.shape, generator=biases) * 0.005)
+        temper_fpn(start)
+        ref_params = [p.detach().clone().requires_grad_() for p in start.parameters()]
+        for p, q in zip(ref_params, sg.model.parameters()):
+            p.grad = q.grad.cpu()
+        ref = OptaxChain(ref_params, tsmall.TRAIN.OPTIM_METHOD, tsmall.TRAIN.WEIGHT_DECAY,
+                         tsmall.TRAIN.MOMENTUM)
+        ref.param_groups[0]["lr"] = 0.01
+        ref.step()
+        opt_rel, worst = max((float((q.detach().cpu() - p.detach()).abs().max()
+                                    / p.detach().abs().max().clamp_min(1e-12)), n_)
+                             for (n_, q), p in zip(sg.model.named_parameters(), ref_params))
+        moments = []
+        for (n_, p), q in zip(sg.model.named_parameters(), sc.model.parameters()):
+            for slot in ("mu", "nu"):
+                a, b = sg.optimizer.state[p][slot].cpu(), sc.optimizer.state[q][slot]
+                if slot == "nu":
+                    a, b = a.sqrt(), b.sqrt()
+                moments.append((float((a - b).abs().max() / b.abs().max().clamp_min(1e-12)),
+                                f"{slot} {n_}"))
+        mom_rel, mom_worst = max(moments)
+        held, gap, floor, size = True, 0.0, 0.0, 0.0
+        if name == "A":
+            with common.float64_moments():
+                s64 = small_step_card_and_cpu(tsmall)["cpu_state"]
+            cpu = moment_slots(sc.model, sc.optimizer)
+            held, gap, floor, size = within_own_error(
+                moment_slots(sg.model, sg.optimizer), cpu,
+                moment_slots(s64.model, s64.optimizer), cpu)
+        log(f"{label} train step card vs CPU: losses rel err {loss_rel:.3g}; buffer err "
+            f"{buf_err:.3g}; BN statistics rel err {stat_rel:.3g}; parameters against the CPU "
+            f"optimizer on the card's gradients {opt_rel:.3g} ({worst}); optimizer moments "
+            f"against the CPU's {mom_rel:.3g} ({mom_worst}); positives {mg['positive_rois']:.0f}"
+            + (f"; moments as one vector: {gap:.4g} from the CPU's, whose own float32 error is "
+               f"{floor:.4g} (norm {size:.4g})" if name == "A" else ""))
+        require(loss_rel <= 1e-4 and buf_err <= 1e-4 and stat_rel <= 1e-4 and opt_rel <= 1e-5,
+                f"{label}: the card's train step differs from the CPU's")
+        require(mom_rel <= 1e-5 if name == "B" else held,
+                f"{label}: the card's gradients differ from the CPU's")
+        require(mg["positive_rois"] > 0, f"{label}: no positives")
+
+    def train_options_path():
+        """The flagship under option sets A and B at full width in bfloat16
+        (:func:`options_train`), K3's ``xla`` mode held and timed on set A's
+        big-set cotangents (:func:`hold_k3_xla`), each set's step paired with
+        the flagship's SGD step in turns and its device time by family, then
+        each set on a small model card against CPU (:func:`options_small`)."""
+        from feature_intertwiner_tpu_torch.train import workflow
+
+        t0 = time.perf_counter()
+        trainers, peaks = {}, {}
+        for name in ("A", "B"):
+            trainer, loader, launches, xla_calls, peaks[name] = options_train(name)
+            trainers[name] = trainer
+            if name == "A":
+                a_launches = launches
+                with torch.no_grad():
+                    k3 = hold_k3_xla(xla_calls)
+                del xla_calls
+        k3_bytes = k3["bytes"] / H100_BYTES_PER_S * 1e3
+        k3_ops = k3["ops"] / H100_FP32_OPS_PER_S * 1e3
+        log(f"OPTIONS A per step: K3 xla mode float32 kernel {k3['ms']:.4f} ms over 3 launches, "
+            f"plain {k3['plain_ms']:.4f}, grid_sample backward {k3['lib_ms']:.4f}; bound "
+            f"{k3['bytes']} bytes -> {k3_bytes:.6f} ms, {k3['ops']} fp32 ops -> {k3_ops:.6f} ms; "
+            f"as the step calls it (bfloat16 cotangents) {k3['ms_entry']:.4f} ms")
+        fold_err("roi_align_bwd", k3["abs"])
+        kernels.append({
+            "name": "roi_align_bwd_xla", "route": "cuda",
+            "source": "feature_intertwiner_tpu_torch/csrc/roi_align_bwd.cu",
+            "replaces": "feature_intertwiner_tpu/ops/roi_align_window_bwd.py:106",
+            "launches": a_launches["roi_align_bwd_xla"], "max_abs_err": k3["abs"],
+            "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": max(k3_bytes, k3_ops),
+            "bound_by": "bytes" if k3_bytes >= k3_ops else "operations",
+            "library_ms": k3["lib_ms"]})
+        log(f"OPTIONS the two stages and their checks: {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        tcfg1 = build_config("meta_105_quick_1", "train", opts=list(FLAGSHIP_OVERRIDES))
+        t1 = workflow.Trainer(temper_fpn(seeded_model(build_model, tcfg1, seed=0,
+                                                      dtype=torch.bfloat16)), tcfg1)
+        batch = workflow.to_device(next(iter(loader)), "cuda")
+        gen = torch.Generator(device="cuda")
+        for t in (t1, *trainers.values()):
+            workflow.set_trainable(t.model, "all")
+
+        def one(t):
+            gen.manual_seed(0)
+            workflow.train_step(t.state, t.cfg, batch, 1e-4, 1.0, gen)
+
+        one(t1)
+        step_ms, runs = paired({"flagship SGD": lambda: one(t1),
+                                "set A": lambda: one(trainers["A"]),
+                                "set B": lambda: one(trainers["B"])}, 3, events=True)
+        log("OPTIONS TRAIN step ms ['all', bfloat16], medians of 6 in turns (CUDA events): "
+            + "; ".join(f"{k} {v:.2f} (runs {', '.join(f'{x:.2f}' for x in runs[k])})"
+                        for k, v in step_ms.items())
+            + f"; peak memory of each set's stage: A {peaks['A']:.2f} GiB, B {peaks['B']:.2f} GiB")
+        for name in ("A", "B"):
+            out = profile_by_family(torch, lambda: one(trainers[name]), 1, families)
+            log_breakdown(f"OPTIONS TRAIN BREAKDOWN one 'all' step of set {name} bfloat16", *out)
+        del t1, trainers, batch
+        log(f"OPTIONS the steps paired with the flagship's: {time.perf_counter() - t0:.1f} s")
+        for name in ("A", "B"):
+            options_small(name)
+
+    phase("train_options_path", train_options_path)
 
     if failures:
         log("FAILED phases: " + ", ".join(failures))

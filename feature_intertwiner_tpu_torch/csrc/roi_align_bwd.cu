@@ -19,7 +19,11 @@
 // (the transpose of top = tl + (tr - tl)*lx, out = top + (bot - top)*ly, in
 // the form XLA transposes it). A sample outside the map adds nothing: the
 // forward wrote the constant extrapolation value there. The taps and lerps
-// come from roi_align_taps.cuh, the forward's own sampling.
+// come from roi_align_taps.cuh, the forward's own sampling: K1's, or with
+// `xla` that of the jitted single-level crop, whose forward is
+// crop_and_resize.cu's `xla` mode (the Dev big-set crop's gradient). Only
+// pass 1 reads the mode: every later pass, the tile cover included, works
+// from the taps it packs.
 //
 // Bound on the card: bytes. g is read once and every map is written once;
 // the work is a few flops per value. What stands in the way is the crowd:
@@ -164,7 +168,7 @@ __global__ void roi_align_bwd_taps(Levels lv, int num_levels, int batch,
                          const float* __restrict__ boxes,
                          const int* __restrict__ box_idx,
                          const int* __restrict__ level_idx, int n, int crop_h,
-                         int crop_w, float inv_h, float inv_w,
+                         int crop_w, float inv_h, float inv_w, bool xla,
                          int4* __restrict__ info, int2* __restrict__ ytap,
                          int2* __restrict__ xtap) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
@@ -180,7 +184,7 @@ __global__ void roi_align_bwd_taps(Levels lv, int num_levels, int batch,
   const float x2 = boxes[4 * k + 3];
   int r0 = 1 << 30, r1 = -1, c0 = 1 << 30, c1 = -1;
   for (int i = 0; i < crop_h; ++i) {
-    const Taps t = corner_taps(sample_position(y1, y2, crop_h, inv_h, i, h), h);
+    const Taps t = corner_taps(sample_position(y1, y2, crop_h, inv_h, i, h, xla), h);
     ytap[k * crop_h + i] = make_int2(t.valid ? (t.lo | (t.hi << 16)) : -1, __float_as_int(t.lerp));
     if (t.valid) {
       r0 = min(r0, t.lo);
@@ -188,7 +192,7 @@ __global__ void roi_align_bwd_taps(Levels lv, int num_levels, int batch,
     }
   }
   for (int j = 0; j < crop_w; ++j) {
-    const Taps t = corner_taps(sample_position(x1, x2, crop_w, inv_w, j, w), w);
+    const Taps t = corner_taps(sample_position(x1, x2, crop_w, inv_w, j, w, xla), w);
     xtap[k * crop_w + j] = make_int2(t.valid ? (t.lo | (t.hi << 16)) : -1, __float_as_int(t.lerp));
     if (t.valid) {
       c0 = min(c0, t.lo);
@@ -579,7 +583,9 @@ extern "C" long long roi_align_bwd_partial_floats(int partials, int channels) {
 
 // Passes 1-4. heights/widths: num_levels host ints; boxes [n, 4] float32,
 // box_idx and level_idx [n] int32 (0-based level) in device memory;
-// inv_h/inv_w: float32 1/(crop-1), as the forward got them; scratch: device
+// inv_h/inv_w: float32 1/(crop-1), as the forward got them; xla: the sample
+// positions of the jitted single-level crop (roi_align_taps.cuh), else K1's;
+// scratch: device
 // ints of roi_align_bwd_scratch_ints, 16-byte aligned. Writes the totals
 // (work items, partial slots, tiles of several items, most items of one
 // tile, (box, tile) pairs) into the last five ints of scratch and returns
@@ -587,7 +593,8 @@ extern "C" long long roi_align_bwd_partial_floats(int partials, int channels) {
 extern "C" int roi_align_bwd_plan(const int* heights, const int* widths, int num_levels,
                                   int batch, const float* boxes, const int* box_idx,
                                   const int* level_idx, int n, int crop_h, int crop_w,
-                                  float inv_h, float inv_w, int* scratch, void* stream) {
+                                  float inv_h, float inv_w, int xla, int* scratch,
+                                  void* stream) {
   Levels lv;
   int tiles = 0;
   if (n < 0 || crop_h < 1 || crop_w < 1 ||
@@ -601,7 +608,7 @@ extern "C" int roi_align_bwd_plan(const int* heights, const int* widths, int num
   if (n > 0) {
     roi_align_bwd_taps<<<(n + 127) / 128, 128, 0, st>>>(
         lv, num_levels, batch, boxes, box_idx, level_idx, n, crop_h, crop_w, inv_h, inv_w,
-        s.info, s.ytap, s.xtap);
+        xla != 0, s.info, s.ytap, s.xtap);
   }
   roi_align_bwd_bin<<<keys, kThreads, 0, st>>>(s.info, n, s.bins, s.bin_start, s.bin_count);
   roi_align_bwd_count<<<(tiles + kWarps - 1) / kWarps, kThreads, 0, st>>>(

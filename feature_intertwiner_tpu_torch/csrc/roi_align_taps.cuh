@@ -7,7 +7,12 @@
 //   pos = c0*(dim-1) + i*((c1-c0)*(dim-1)/(crop-1))   (centre when crop == 1)
 // rounded as XLA compiles ops/roi_align.py::_multilevel_gather: the division
 // is a multiply by the float32 reciprocal `inv` of (crop-1), and
-// `i*step + c0*(dim-1)` is one fused multiply-add. The including file is
+// `i*step + c0*(dim-1)` is one fused multiply-add. With `xla` (the
+// backward's mode for the single-level crop) the step is rounded as XLA
+// compiles the jitted ops/roi_align.py::crop_and_resize instead: it folds
+// (dim-1) and `inv` into one constant first, step = (c1-c0) * ((dim-1)*inv),
+// which is another float than ((c1-c0)*(dim-1))*inv for some boxes (a box
+// that ends at 1.0 may tap the last row or not). The including file is
 // compiled with -fmad=false, so nothing else is contracted.
 
 #pragma once
@@ -24,10 +29,12 @@ struct Taps {
 };
 
 __device__ __forceinline__ float sample_position(float c0, float c1, int crop,
-                                                 float inv, int i, float dim) {
+                                                 float inv, int i, float dim,
+                                                 bool xla = false) {
   const float dm1 = dim - 1.0f;
   if (crop > 1) {
-    const float step = __fmul_rn(__fmul_rn(c1 - c0, dm1), inv);
+    const float step = xla ? __fmul_rn(c1 - c0, __fmul_rn(dm1, inv))
+                           : __fmul_rn(__fmul_rn(c1 - c0, dm1), inv);
     return __fmaf_rn((float)i, step, __fmul_rn(c0, dm1));
   }
   return __fmul_rn(__fmul_rn(0.5f, c0 + c1), dm1);

@@ -8,7 +8,7 @@ Compute dtype, as flax's ``dtype``/``param_dtype``: parameters stay
 float32, and :class:`Conv1d`, :class:`Conv2d`, :class:`ConvTranspose2d` and
 :class:`Linear` (and their SAME-padded kinds) cast their weight and bias to
 their input's dtype (bfloat16 in a bfloat16
-model) and give a result in it. ``nn.BatchNorm2d`` takes a bfloat16 input
+model) and give a result in it. :class:`BatchNorm2d` takes a bfloat16 input
 with its float32 affine parameters and running statistics, computes in
 float32 and gives bfloat16, as flax's ``BatchNorm(dtype=bfloat16)`` does.
 The model casts its images to its dtype before the backbone
@@ -17,8 +17,12 @@ cast back to float32 where the JAX package does.
 
 BatchNorm epsilons per site, as in the JAX package (``models/common.py``):
 1e-3 for the backbone, FPN, classifier and mask head, 1e-5 for the Dev
-upsampler and critic. Momenta are torch's for the same sites (0.01 and 0.1);
-inference reads only the running statistics.
+upsampler and critic. Momenta are torch's for the same sites (0.01 and 0.1;
+flax's 0.99 and 0.9). In ``eval()`` BN reads its running statistics, at
+inference and in training (the JAX package's default). In ``train()``
+(:func:`bn_learning`, ``TRAIN.BN_LEARN``) it learns batch statistics as
+flax's ``BatchNorm(use_running_average=False)`` does, not as
+``nn.BatchNorm2d`` would (see :class:`BatchNorm2d`).
 
 Padding: flax ``padding='SAME'`` is symmetric for odd kernels at stride 1
 (plain ``padding=k // 2``), but for stride 2 on an even input it pads
@@ -27,8 +31,9 @@ Padding: flax ``padding='SAME'`` is symmetric for odd kernels at stride 1
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -92,8 +97,83 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
-def batch_norm(channels: int, eps: float = BN_EPS, momentum: float = 0.01) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=eps, momentum=momentum)
+def batch_moments(x32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``E[x]`` and ``E[x²]`` per channel of an NCHW float32 batch, reduced
+    in float32 over N, H and W."""
+    return x32.mean((0, 2, 3)), (x32 * x32).mean((0, 2, 3))
+
+
+def exact_batch_moments(x32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`batch_moments` whose values are the float32 roundings of the
+    float64 moments, with :func:`batch_moments`' own gradient."""
+    mean, mean2 = batch_moments(x32)
+    x64 = x32.detach().double()
+    return (mean + (x64.mean((0, 2, 3)).float() - mean).detach(),
+            mean2 + ((x64 * x64).mean((0, 2, 3)).float() - mean2).detach())
+
+
+@contextlib.contextmanager
+def float64_moments() -> Iterator[None]:
+    """Inside the block every learning :class:`BatchNorm2d` takes its batch
+    moments from float64 (:func:`exact_batch_moments`): a step run so,
+    against the same step run as it is, measures what the float32 rounding
+    of the batch moments alone moves."""
+    BatchNorm2d.moments = staticmethod(exact_batch_moments)
+    try:
+        yield
+    finally:
+        BatchNorm2d.moments = staticmethod(batch_moments)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training mode is flax's ``BatchNorm`` with
+    ``use_running_average=False`` (flax 0.12 ``_compute_stats`` and
+    ``_normalize``): the batch statistics reduced in float32 over N, H and
+    W, the variance ``E[x²] - E[x]²`` clipped at 0 (``use_fast_variance``);
+    the output ``(x - mean) · (rsqrt(var + eps) · weight) + bias`` in
+    float32, cast to the input's dtype; the running statistics moved by
+    ``m · ra + (1 - m) · stat`` with flax's momentum ``m = 1 - momentum``
+    and the *biased* variance (torch's own training mode takes the unbiased
+    one, n/(n-1) larger), and ``num_batches_tracked`` left alone. The
+    gradient flows through the batch statistics. In ``eval()`` it is
+    ``nn.BatchNorm2d``. ``moments`` takes the batch's ``E[x]`` and
+    ``E[x²]`` (:func:`batch_moments`; :func:`float64_moments` swaps it)."""
+
+    moments = staticmethod(batch_moments)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        x32 = x.float()
+        mean, mean2 = self.moments(x32)
+        var = (mean2 - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = 1.0 - self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+def batch_norm(channels: int, eps: float = BN_EPS, momentum: float = 0.01) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=eps, momentum=momentum)
+
+
+@contextlib.contextmanager
+def bn_learning(model: nn.Module, on: bool = True) -> Iterator[None]:
+    """Inside the block every :class:`BatchNorm2d` of ``model`` learns batch
+    statistics (``on``); each gets its own mode back after it. The rest of
+    the model keeps its mode."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)] if on else []
+    modes = [m.training for m in bns]
+    for m in bns:
+        m.train(True)
+    try:
+        yield
+    finally:
+        for m, mode in zip(bns, modes):
+            m.train(mode)
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:

@@ -9,7 +9,12 @@ targets and the five losses in place of the detection layer.
 Training follows the JAX package's ``strict_quirks`` (SURVEY §3.5 #1): it
 proposes ``POST_NMS_ROIS_INFERENCE`` boxes (``POST_NMS_ROIS_TRAINING`` with
 ``MODEL.STRICT_QUIRKS`` off) and BN stays in eval mode, its running
-statistics frozen; the caller keeps the model in ``eval()``.
+statistics frozen; the caller keeps the model in ``eval()``. With
+``train_bn`` (``TRAIN.BN_LEARN``) every BN of the forward learns batch
+statistics instead, as the JAX ``train_bn=True`` with a mutable
+``batch_stats`` (``models/common.py::bn_learning``), and goes back to its
+mode after it. Under ``DEV.BASELINE`` the classifier gets no critic
+vectors, in training and at inference.
 
 ``dtype`` is the compute dtype (JAX ``InterNet.dtype``): the images are
 cast to it before the backbone and every layer after computes in it
@@ -36,6 +41,7 @@ from ..ops.detection import detection_layer
 from ..ops.proposals import proposal_layer
 from ..ops.targets import detection_targets, rpn_targets
 from ..train import losses as L
+from .common import bn_learning
 from .fpn import FPN
 from .heads import BoxHead, MaskHead
 from .intertwiner import Dev
@@ -300,19 +306,25 @@ class InterNet(nn.Module):
     def forward_train(self, images: torch.Tensor, gt_class_ids: torch.Tensor,
                       gt_boxes: torch.Tensor, gt_masks: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
-                      draws: Optional[Dict[str, torch.Tensor]] = None
-                      ) -> Dict[str, torch.Tensor]:
+                      draws: Optional[Dict[str, torch.Tensor]] = None,
+                      train_bn: bool = False) -> Dict[str, torch.Tensor]:
         """images [B, S, S, 3] molded NHWC; gt_class_ids [B, G] (0 pad,
         < 0 crowd); gt_boxes [B, G, 4] pixels; gt_masks [B, G, mh, mw]
         (mini-masks or full).
 
         The targets' random subsets come from ``generator``, or from
         ``draws`` ({"rpn": [B, 2, A], "det": [B, 2, P]} uniform scores).
+        ``train_bn``: BN learns batch statistics (module docstring).
         Returns the five losses, ``fpn_ot_loss`` [B, 3] (zeros without
         ``fpn_ot_loss``), ``positive_rois`` (sampled positives in the batch)
         and, with the intertwiner on, ``intertwiner`` (the Dev statistics,
         see :meth:`Dev.forward_train`); the buffer update and the meta loss
         are the train step's (``train/step.py``)."""
+        with bn_learning(self, train_bn):
+            return self._forward_train(images, gt_class_ids, gt_boxes, gt_masks, generator,
+                                       draws)
+
+    def _forward_train(self, images, gt_class_ids, gt_boxes, gt_masks, generator, draws):
         b = images.shape[0]
         pyramid, fpn_ot = self.fpn.forward_train(images.to(self.dtype).permute(0, 3, 1, 2))
         rpn_logits, rpn_probs, rpn_deltas = run_rpn_over_pyramid(self.rpn, pyramid)

@@ -19,11 +19,19 @@ vector (sigmoid for the L1/L2 meta loss, softmax for KL, none for OT). In
 training (:meth:`Dev.forward_train`), per meta level l in (2, 3, 4) the
 small set is the RoIs assigned to l, and the reliable ("big") set the RoIs
 of the levels above it, pooled 14² from the raw map P_l by the
-single-level grouped crop (K4) with the sample positions of the jitted JAX
+single-level grouped crop (:func:`~..ops.roi_align.crop_and_resize_fused`:
+K4 forward, K3 backward) with the sample positions of the jitted JAX
 ``crop_and_resize`` (``positions="xla"``) and run through the critic; both
 are reduced to per-class means (:func:`class_mean`). A level without small
 RoIs has its big statistics zeroed. The big side is computed without
-gradient (``BIG_FEAT_DETACH``). At inference the critic runs only for
+gradient (``BIG_FEAT_DETACH``, the default) unless ``BIG_SUPERVISE`` or
+``BIG_FEAT_DETACH False`` asks for it: then the gradient reaches P2-P4
+through ``big_fc``'s cross-entropy (``BIG_SUPERVISE``: per meta level the
+mean over the big set's RoIs of the cross-entropy of ``big_fc`` (1024 to K)
+on the critic's raw vector, against the RoI's class) and, without the
+detach, through the big class means. ``BASELINE`` runs the make-up layer
+and the poolings but builds no critic and returns no statistics. At
+inference the critic runs only for
 ``CLS_MERGE_FEAT`` (:meth:`Dev.small_features`), on the 14² pooling of every
 proposal; the classifier adds its vectors in RoI order.
 
@@ -32,6 +40,11 @@ The make-up layer, the poolings and the critic run in the maps' dtype
 the last op, and the class means and the meta loss are float32, as in JAX.
 
 Each variant outside the port raises ``NotImplementedError`` naming itself.
+Under ``TRAIN.BN_LEARN`` the train step runs :meth:`Dev.forward_train` with
+BN learning (``models/common.py::bn_learning``): the shared make-up block
+updates its running statistics once per level, P2 to P5, and the critic
+four times per step, small set first and then the big sets of levels 2, 3
+and 4, the order of the JAX package's calls.
 """
 
 from __future__ import annotations
@@ -42,9 +55,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.roi_align import (assign_fpn_level, crop_and_resize_grouped,
-                             multilevel_crop_and_resize)
-from .common import DEV_BN_EPS, Conv2d, SameConv2d, SameConvTranspose2d, batch_norm
+from ..ops.roi_align import assign_fpn_level, crop_and_resize_fused, multilevel_crop_and_resize
+from .common import DEV_BN_EPS, Conv2d, Linear, SameConv2d, SameConvTranspose2d, batch_norm
 
 META_LEVELS = (2, 3, 4)
 
@@ -169,7 +181,10 @@ class Dev(nn.Module):
                 self.upsample = nn.ModuleList([
                     UpsampleBlock(channels, upsample_fac, upsample_init, upsample_residual)
                     for _ in range(4 if multi_upsampler else 1)])
-            self.feat_extract = Critic(channels, feat_pool_size)
+            if not baseline:
+                self.feat_extract = Critic(channels, feat_pool_size)
+                if big_supervise:
+                    self.big_fc_layer = Linear(1024, num_classes)
         self.use_dev = use_dev
         self.image_size = image_size
         self.assign_base = assign_base
@@ -238,21 +253,17 @@ class Dev(nn.Module):
         [B·R, M, M, C], stats); the critic reads pooled_mask. With the
         intertwiner on, stats holds
         big_feat and small_feat [3, 1024, K], big_cnt and small_cnt
-        [3, 1, K], big_loss [3] (zeros), small_out [B·R, 1024] (the critic's
+        [3, 1, K], big_loss [3], small_out [B·R, 1024] (the critic's
         vectors of meta-level RoIs, in RoI order) and small_gt [B·R]; it is
-        None with the intertwiner off."""
-        if self.use_dev:
-            for flag, name in ((self.baseline, "DEV.BASELINE"),
-                               (self.big_supervise, "DEV.BIG_SUPERVISE"),
-                               (not self.big_feat_detach, "DEV.BIG_FEAT_DETACH False")):
-                if flag:
-                    raise NotImplementedError(f"{name} in training")
+        None with the intertwiner off or under ``BASELINE``. ``big_loss``
+        holds the ``BIG_SUPERVISE`` cross-entropy per meta level (zeros
+        without it)."""
         b, r, _ = rois.shape
         flat = rois.reshape(-1, 4)
         maps = self.pooling_maps(feats)
         pooled_cls = self.pool(maps, rois, pool_size)
         pooled_mask = self.pool(maps, rois, mask_pool_size)
-        if not self.use_dev:
+        if not self.use_dev or self.baseline:
             return pooled_cls, pooled_mask, None
 
         k = self.num_classes
@@ -261,24 +272,35 @@ class Dev(nn.Module):
         # set holds
         small_out, on_meta = self.small_features(pooled_mask, rois)
         flat_gt = roi_gt.reshape(-1).to(torch.int64)
-        stats = {key: [] for key in ("small_feat", "small_cnt", "big_feat", "big_cnt")}
+        # the big side carries a gradient only for big_fc or the attached means
+        big_grad = torch.is_grad_enabled() and (self.big_supervise or not self.big_feat_detach)
+        stats = {key: [] for key in ("small_feat", "small_cnt", "big_feat", "big_cnt",
+                                     "big_loss")}
         for level_id in META_LEVELS:
             small = lvl == level_id
             feat, cnt = class_mean(small_out, flat_gt, small, k)
             stats["small_feat"].append(feat)
             stats["small_cnt"].append(cnt)
-            with torch.no_grad():
+            with torch.set_grad_enabled(big_grad):
                 raw = feats[level_id - 2].permute(0, 2, 3, 1).contiguous()
-                pooled_big = crop_and_resize_grouped(
-                    raw, rois.contiguous(), (self.feat_pool_size,) * 2, positions="xla")
+                pooled_big = crop_and_resize_fused(raw, rois.contiguous(),
+                                                   (self.feat_pool_size,) * 2, positions="xla")
                 pooled_big = pooled_big.reshape(b * r, *pooled_big.shape[2:])
-                big_act = self.last_op(self.feat_extract(pooled_big).float())
-                feat, cnt = class_mean(big_act, flat_gt, big_mask(level_id, lvl), k)
+                big_raw = self.feat_extract(pooled_big)
+                b_mask = big_mask(level_id, lvl)
+                feat, cnt = class_mean(self.last_op(big_raw.float()), flat_gt, b_mask, k)
                 has_small = small.any().float()
-                stats["big_feat"].append(feat * has_small)
+                feat = feat * has_small
+                stats["big_feat"].append(feat.detach() if self.big_feat_detach else feat)
                 stats["big_cnt"].append(cnt * has_small)
+                if self.big_supervise:
+                    logits = self.big_fc_layer(big_raw).float()
+                    ce = -torch.log_softmax(logits, dim=-1).gather(1, flat_gt[:, None])[:, 0]
+                    w = b_mask.float() * has_small
+                    stats["big_loss"].append((ce * w).sum() / w.sum().clamp_min(1.0))
+                else:
+                    stats["big_loss"].append(small_out.new_zeros(()))
         out = {key: torch.stack(v) for key, v in stats.items()}
-        out["big_loss"] = small_out.new_zeros(len(META_LEVELS))
         out["small_out"] = small_out
         out["small_gt"] = torch.where(on_meta > 0, flat_gt, 0).float()
         return pooled_cls, pooled_mask, out

@@ -36,7 +36,10 @@ The single-level crops of boxes grouped per image (``[B, NB, 4]`` boxes,
 :func:`crop_and_resize_grouped_mm` (K5, ``_roi_align_matmul_kernel``), both
 ``csrc/crop_and_resize.cu`` on the card; and :func:`crop_and_resize_fused`,
 the JAX custom VJP of the same name (K4 forward, K3 backward). They sample
-as those kernels do, with a true division and no fused multiply-add.
+as those kernels do, with a true division and no fused multiply-add, or
+with ``positions="xla"`` as the jitted JAX ``crop_and_resize`` does (the
+Dev big-set crop); K3 then places its samples the same way (its ``xla``
+mode, :func:`_sample_positions`).
 
 Maps may be float32 or bfloat16 (:data:`POOL_DTYPES`). A bfloat16 map is
 widened to float32 once per call (exact), the float32 kernel or plain
@@ -93,27 +96,39 @@ def reciprocal(crop: int) -> float:
     return float(torch.tensor(1.0 / max(crop - 1, 1), dtype=torch.float32))
 
 
-def _sample_positions(c0, c1, crop: int, dim: torch.Tensor) -> torch.Tensor:
+def _sample_positions(c0, c1, crop: int, dim: torch.Tensor, xla: bool = False) -> torch.Tensor:
     """[N] coordinates and [N] map extents -> [N, crop] sample positions,
-    rounded as XLA compiles the JAX package's ``_sample_positions``."""
+    rounded as XLA compiles the JAX package's ``_sample_positions`` in the
+    multilevel gather (K1, K3): ``step = ((c1 - c0)(dim-1)) · (1 /
+    (crop-1))``; with ``xla`` (K3 only: the gradient of the Dev big-set
+    crop, whose forward is K4's ``positions="xla"``) as it compiles the
+    jitted single-level crop, the two constants folded first, ``step = (c1 -
+    c0) · ((dim-1) · (1 / (crop-1)))`` (:func:`xla_ratio`,
+    :func:`_single_level_positions`); then ``i · step + c0 (dim-1)`` as one
+    fused multiply-add."""
     dm1 = dim - 1.0
     if crop > 1:
-        step = ((c1 - c0) * dm1) * reciprocal(crop)
+        if xla:
+            step = (c1 - c0) * (dm1 * reciprocal(crop))
+        else:
+            step = ((c1 - c0) * dm1) * reciprocal(crop)
         i = torch.arange(crop, dtype=torch.float32, device=c0.device)
         return _fma(i[None, :], step[:, None], (c0 * dm1)[:, None])
     return (0.5 * (c0 + c1) * dm1)[:, None]
 
 
 def _corner_weights(pos: torch.Tensor, dim: torch.Tensor):
-    """floor/ceil tap indices, lerp and validity of [N, crop] positions."""
+    """floor/ceil tap indices, lerp and validity of [N, crop] positions. A
+    NaN position (a NaN box) is invalid, taps cell 0 (as the kernels'
+    ``fmaxf`` clamp makes it) with a zero lerp, and adds nothing."""
     dm1 = (dim - 1.0)[:, None]
     valid = (pos >= 0.0) & (pos <= dm1)
     lo = torch.floor(pos)
     hi = torch.ceil(pos)
-    lerp = pos - lo
+    lerp = torch.nan_to_num(pos - lo, nan=0.0)
     zero = torch.zeros_like(dm1)
-    lo_i = torch.clamp(lo, zero, dm1).to(torch.int64)
-    hi_i = torch.clamp(hi, zero, dm1).to(torch.int64)
+    lo_i = torch.clamp(torch.nan_to_num(lo, nan=0.0), zero, dm1).to(torch.int64)
+    hi_i = torch.clamp(torch.nan_to_num(hi, nan=0.0), zero, dm1).to(torch.int64)
     return lo_i, hi_i, lerp, valid
 
 
@@ -123,10 +138,12 @@ def tap_rows(
     box_indices: torch.Tensor,
     level_idx: torch.Tensor,
     crop_size: Tuple[int, int],
+    xla: bool = False,
 ):
     """Where each sample reads: rows of the flattened pyramid
     ``[B * sum(H_l W_l), C]`` (levels concatenated per image), for levels of
-    the NHWC ``shapes``.
+    the NHWC ``shapes``, at the sample positions :func:`_sample_positions`
+    rounds (with ``xla`` as the jitted single-level crop does).
 
     Returns ``(tl, tr, bl, br)`` row indices, each [N, ch, cw] int64, the
     lerps ``ly`` [N, ch] and ``lx`` [N, cw], and ``valid`` [N, ch, cw]."""
@@ -141,8 +158,8 @@ def tap_rows(
     hs = heights[level_idx].to(torch.float32)
     ws = widths[level_idx].to(torch.float32)
     y1, x1, y2, x2 = boxes.unbind(dim=1)
-    ty, by, ly, vy = _corner_weights(_sample_positions(y1, y2, ch, hs), hs)
-    lx_i, rx_i, lx, vx = _corner_weights(_sample_positions(x1, x2, cw, ws), ws)
+    ty, by, ly, vy = _corner_weights(_sample_positions(y1, y2, ch, hs, xla), hs)
+    lx_i, rx_i, lx, vx = _corner_weights(_sample_positions(x1, x2, cw, ws, xla), ws)
 
     base = box_indices.to(torch.int64) * sum(sizes) + offsets[level_idx]
     wi = widths[level_idx]
@@ -341,10 +358,12 @@ def multilevel_gather_bwd_plain(
     box_indices: torch.Tensor,
     level_idx: torch.Tensor,
     crop_size: Tuple[int, int],
+    xla: bool = False,
 ) -> List[torch.Tensor]:
     """Plain version of the RoIAlign backward kernel: the transpose of
     :func:`multilevel_gather_plain`, an ``index_add_`` of the four weighted
-    taps of every valid sample into the flattened pyramid.
+    taps of every valid sample into the flattened pyramid; the samples
+    placed as :func:`_sample_positions` says with ``xla``.
 
     The weights are those XLA's transpose of the lerps gives:
     ``a = g ly``, ``top = g - a``, ``bot = a``; ``tl += top - top lx``,
@@ -355,7 +374,7 @@ def multilevel_gather_bwd_plain(
     the float32 sums rounded once to bfloat16."""
     b, c = shapes[0][0], shapes[0][3]
     (tl, tr, bl, br), ly, lx, valid = tap_rows(
-        shapes, boxes, box_indices, level_idx, crop_size)
+        shapes, boxes, box_indices, level_idx, crop_size, xla)
     dtype = torch.float64 if g.dtype == torch.float64 else torch.float32
     out = torch.bfloat16 if g.dtype == torch.bfloat16 else dtype
     g = torch.where(valid[..., None], g.to(dtype), g.new_zeros((), dtype=dtype))
@@ -379,9 +398,13 @@ def roi_align_bwd(
     box_indices: torch.Tensor,
     level_idx: torch.Tensor,
     crop_size: Tuple[int, int],
+    xla: bool = False,
 ) -> List[torch.Tensor]:
     """Multilevel RoIAlign backward: the gradient of :func:`roi_align_fwd`
-    with respect to each level, ``[B, H_l, W_l, C]`` in g's dtype.
+    with respect to each level, ``[B, H_l, W_l, C]`` in g's dtype; with
+    ``xla`` the gradient of the single-level crops of K4's
+    ``positions="xla"`` instead, every sample placed as the jitted JAX
+    ``crop_and_resize`` places it (:func:`_sample_positions`).
 
     g: the crops' cotangent [N, ch, cw, C], float32 or bfloat16 (widened to
     float32, each level's gradient rounded once to bfloat16); shapes: the NHWC shapes
@@ -392,7 +415,8 @@ def roi_align_bwd(
     (which replaces ``feature_intertwiner_tpu/ops/roi_align_window_bwd.py::
     _bwd_kernel``); on CPU tensors it runs
     :func:`multilevel_gather_bwd_plain`. See :func:`roi_align_bwd_with_plan`."""
-    return roi_align_bwd_with_plan(g, shapes, boxes, box_indices, level_idx, crop_size)[0]
+    return roi_align_bwd_with_plan(g, shapes, boxes, box_indices, level_idx, crop_size,
+                                   xla)[0]
 
 
 def roi_align_bwd_with_plan(
@@ -402,11 +426,13 @@ def roi_align_bwd_with_plan(
     box_indices: torch.Tensor,
     level_idx: torch.Tensor,
     crop_size: Tuple[int, int],
+    xla: bool = False,
 ) -> Tuple[List[torch.Tensor], Optional[Dict[str, int]]]:
     """:func:`roi_align_bwd`'s gradients and, on CUDA tensors, the totals of
     the work plan the kernel made (those of :func:`bwd_work_plan` but
     ``tiles``); None on CPU tensors, where the plain version runs. Each
-    launch adds one to ``cuda_build.launches["roi_align_bwd"]``.
+    launch adds one to ``cuda_build.launches["roi_align_bwd"]``, and one in
+    the ``xla`` mode also to ``cuda_build.launches["roi_align_bwd_xla"]``.
 
     The kernel plans on the card how it splits each map tile's boxes across
     blocks, then reads the plan's five totals back to the host to size its
@@ -430,7 +456,7 @@ def roi_align_bwd_with_plan(
     g = g.float()                                       # exact, once per call
     if dev.type == "cpu":
         return [d.to(dtype) for d in multilevel_gather_bwd_plain(
-            g, shapes, boxes, box_indices, level_idx, (ch, cw))], None
+            g, shapes, boxes, box_indices, level_idx, (ch, cw), xla)], None
     if dev.type != "cuda":
         raise ValueError(f"roi_align_bwd runs on cuda or cpu, not {dev}")
     if not g.is_contiguous():
@@ -452,7 +478,8 @@ def roi_align_bwd_with_plan(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.roi_align_bwd_plan(hs, ws, num, b, boxes.data_ptr(), bidx.data_ptr(),
                                      lidx.data_ptr(), n, ch, cw, reciprocal(ch),
-                                     reciprocal(cw), scratch.data_ptr(), stream)
+                                     reciprocal(cw), int(xla),
+                                     scratch.data_ptr(), stream)
         cuda_build.check(err, "roi_align_bwd_plan")
         items, partials, multi_tiles, max_chunks, pairs = scratch[-5:].tolist()
         work = torch.empty(items + pairs, dtype=torch.int32, device=dev)
@@ -473,6 +500,8 @@ def roi_align_bwd_with_plan(
                                     work.data_ptr(), part.data_ptr(), stream)
             cuda_build.check(err, "roi_align_bwd")
             cuda_build.launches["roi_align_bwd"] += 1
+            if xla:
+                cuda_build.launches["roi_align_bwd_xla"] += 1
             if dst is not outs:
                 for o, d in zip(outs, dst):
                     o[..., c0:c1].copy_(d)
@@ -527,7 +556,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib.roi_align_bwd_partial_floats.argtypes = [i32, i32]
     lib.roi_align_bwd_plan.restype = i32
     lib.roi_align_bwd_plan.argtypes = ([ints, ints, i32, i32, ptr, ptr, ptr] + [i32] * 3
-                                       + [f32, f32, ptr, ptr])
+                                       + [f32, f32, i32, ptr, ptr])
     lib.roi_align_bwd.restype = i32
     lib.roi_align_bwd.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ints, ints] + [i32] * 3
                                   + [ptr] + [i32] * 3 + [ptr] + [i32] * 3 + [ptr] * 3)
@@ -542,6 +571,7 @@ def bwd_work_plan(
     crop_size: Tuple[int, int],
     chunk_boxes: int = BWD_CHUNK_BOXES,
     split_above: int = BWD_SPLIT_ABOVE,
+    xla: bool = False,
 ) -> Dict[str, int]:
     """Plain version of the backward kernel's planning passes: how
     ``csrc/roi_align_bwd.cu`` splits the work for these boxes.
@@ -551,7 +581,8 @@ def bwd_work_plan(
     it. A tile that ``c > split_above`` boxes meet gets ``ceil(c /
     chunk_boxes)`` work items, every other tile one (the kernel's constants
     are the defaults); a tile of several items gets as many slots of
-    partial tiles. Returns the totals the kernel reads
+    partial tiles. The samples are placed as :func:`_sample_positions`
+    says with ``xla``. Returns the totals the kernel reads
     back: ``items``, ``partials`` (slots), ``multi_tiles`` (tiles of several
     items), ``max_chunks`` (most items of one tile) and ``pairs`` (the
     (box, tile) pairs of the tiles' box lists), and ``tiles``."""
@@ -565,8 +596,8 @@ def bwd_work_plan(
     hs = torch.tensor([float(s[1]) for s in shapes], device=dev)[lvl]
     ws = torch.tensor([float(s[2]) for s in shapes], device=dev)[lvl]
     y1, x1, y2, x2 = boxes.unbind(dim=1)
-    ty, by, _, vy = _corner_weights(_sample_positions(y1, y2, ch, hs), hs)
-    lx, rx, _, vx = _corner_weights(_sample_positions(x1, x2, cw, ws), ws)
+    ty, by, _, vy = _corner_weights(_sample_positions(y1, y2, ch, hs, xla), hs)
+    lx, rx, _, vx = _corner_weights(_sample_positions(x1, x2, cw, ws, xla), ws)
     far = 1 << 30
     r0, r1 = torch.where(vy, ty, far).amin(1), torch.where(vy, by, -1).amax(1)
     c0, c1 = torch.where(vx, lx, far).amin(1), torch.where(vx, rx, -1).amax(1)
@@ -744,14 +775,15 @@ def _grouped_axis(c0: torch.Tensor, c1: torch.Tensor, crop: int, dim: int,
                   positions: str = "pallas"):
     """[B, NB] box starts and ends on one axis -> tap indices ``lo``, ``hi``
     (int64), ``frac`` and ``valid``, each [B, NB, crop], at the sample
-    positions :func:`_single_level_positions` rounds as ``positions`` says."""
+    positions :func:`_single_level_positions` rounds as ``positions`` says
+    (a NaN position invalid, on cell 0, as in the kernel)."""
     dm1 = float(dim - 1)
     pos = _single_level_positions(c0, c1, crop, dim, positions)
     valid = (pos >= 0.0) & (pos <= dm1)
     lo = torch.floor(pos)
-    frac = pos - lo
-    lo_i = lo.clamp(0.0, dm1).to(torch.int64)
-    hi_i = torch.ceil(pos).clamp(0.0, dm1).to(torch.int64)
+    frac = torch.nan_to_num(pos - lo, nan=0.0)
+    lo_i = torch.nan_to_num(lo, nan=0.0).clamp(0.0, dm1).to(torch.int64)
+    hi_i = torch.nan_to_num(torch.ceil(pos), nan=0.0).clamp(0.0, dm1).to(torch.int64)
     return lo_i, hi_i, frac, valid
 
 
@@ -931,17 +963,22 @@ class CropAndResizeFused(torch.autograd.Function):
     """K4 forward, K3 backward: the port of the JAX custom VJP
     ``crop_and_resize_fused``. The backward is the one-level
     :func:`roi_align_bwd` on the flattened boxes, as ``_fused_bwd`` takes
-    the XLA gather's VJP. K4 samples with a true division and K3 with a
-    reciprocal multiply and fused multiply-adds (as the JAX forward and its
-    XLA backward do), so at a position that lands on an integer the two may
-    tap cells one apart. The boxes get no gradient."""
+    the XLA gather's VJP. With ``positions`` "pallas" K4 samples with a
+    true division and K3 with a reciprocal multiply and fused multiply-adds
+    (as the JAX forward and its XLA backward do), so at a position that
+    lands on an integer the two may tap cells one apart. With "xla" both
+    place every sample as the jitted JAX ``crop_and_resize`` does (K4's and
+    K3's ``xla`` modes), so the backward scatters to the taps the forward
+    read: the gradient of the Dev big-set crop. The boxes get no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, image, boxes, crop_size, extrapolation_value):
+    def forward(ctx, image, boxes, crop_size, extrapolation_value, positions):
         ctx.save_for_backward(boxes)
         ctx.shape = tuple(image.shape)
         ctx.crop_size = crop_size
-        return crop_and_resize_grouped(image, boxes, crop_size, extrapolation_value)
+        ctx.positions = positions
+        return crop_and_resize_grouped(image, boxes, crop_size, extrapolation_value, positions)
 
     @staticmethod
     def backward(ctx, g):
@@ -952,14 +989,19 @@ class CropAndResizeFused(torch.autograd.Function):
         idx = torch.arange(b, dtype=torch.int32, device=boxes.device).repeat_interleave(nb)
         level = torch.zeros_like(idx)
         (d_image,) = roi_align_bwd(g.reshape(b * nb, ch, cw, ctx.shape[3]).contiguous(),
-                                   [ctx.shape], flat, idx, level, ctx.crop_size)
-        return d_image, None, None, None
+                                   [ctx.shape], flat, idx, level, ctx.crop_size,
+                                   xla=ctx.positions == "xla")
+        return d_image, None, None, None, None
 
 
 def crop_and_resize_fused(image: torch.Tensor, boxes: torch.Tensor,
                           crop_size: Tuple[int, int],
-                          extrapolation_value: float = 0.0) -> torch.Tensor:
+                          extrapolation_value: float = 0.0,
+                          positions: str = "pallas") -> torch.Tensor:
     """Differentiable :func:`crop_and_resize_grouped` (gradient into the
-    image only, in its dtype): [B, H, W, C], [B, NB, 4] -> [B, NB, ch, cw, C]."""
+    image only, in its dtype): [B, H, W, C], [B, NB, 4] -> [B, NB, ch, cw, C];
+    ``positions`` as :class:`CropAndResizeFused` says."""
+    if positions not in POSITIONS:
+        raise ValueError(f"positions must be one of {POSITIONS}, got {positions!r}")
     crop = tuple(int(v) for v in crop_size)
-    return CropAndResizeFused.apply(image, boxes, crop, float(extrapolation_value))
+    return CropAndResizeFused.apply(image, boxes, crop, float(extrapolation_value), positions)

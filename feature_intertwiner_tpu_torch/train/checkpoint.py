@@ -3,8 +3,10 @@
 Port of ``feature_intertwiner_tpu/train/checkpoint.py`` with ``torch.save``
 in place of orbax. A checkpoint is one file
 ``<result folder>/checkpoints/ckpt_ep<epoch>_iter<iter>.pt`` holding the
-model's state_dict, the optimizer's (the momentum), the intertwiner buffer
-and its counts, the step, the epoch and the iteration. It is written to a
+model's state_dict (with the BN running statistics), the optimizer's
+(SGD's momentum; Adam's and RMSprop's moments, RMSprop's trace and the step
+count of both), the intertwiner buffer and its counts, the step, the epoch
+and the iteration. It is written to a
 temporary name and renamed, so a reader only ever sees whole files.
 Resume takes the newest by (epoch, iteration); pruning keeps the newest by
 modification time (see the JAX module for why the two orders differ).

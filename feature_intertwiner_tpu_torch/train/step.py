@@ -7,14 +7,22 @@ model and the optimizer, and is checkpointed with them.
 
 Loss assembly, as there: ``sum(five losses) + meta_gate · LOSS_FAC · meta
 + BIG_LOSS_FAC · mean(big) + FPN_OT_LOSS_FAC · mean(fpn_ot)`` (the last
-with ``TRAIN.FPN_OT_LOSS``). The meta loss is
-clamped at 0 when negative; ``meta_gate`` (0 before
+with ``TRAIN.FPN_OT_LOSS``; the big term only with
+``DEV.BIG_SUPERVISE``, and no Dev term under ``DEV.BASELINE``). The meta
+loss is clamped at 0 when negative; ``meta_gate`` (0 before
 ``EFFECT_AFER_EP_PERCENT`` of epoch 1) gates its gradient, not the buffer
 update; a step with no small-RoI statistics computes no meta loss and
-leaves the buffer as it was. Frozen parameters have no gradient (see
-``train/optim.py``); every trainable one gets one, zero where autograd
-gave none, so that SGD decays and moves it as the JAX step does. The
-gradients are clipped to their global norm, and SGD updates in place.
+leaves the buffer as it was. Under ``DEV.DIS_REG_LOSS`` the RPN box, box and
+mask losses become ``x - x.detach()``: their value 0 (so is their share of
+``total_loss``) and their gradient whole, as the JAX step (and the
+reference's zeroing of ``.data``) has them. Under ``TRAIN.BN_LEARN`` the
+forward runs with BN learning batch statistics (``models/common.py::
+bn_learning``), frozen stages included, and the new running statistics are
+the model's buffers after the step. Frozen parameters have no gradient
+(see ``train/optim.py``); every trainable one gets one, zero where autograd
+gave none, so that the optimizer decays and moves it as the JAX step does.
+The gradients are clipped to their global norm, and the optimizer updates
+in place.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from .optim import clip_global_norm, make_optimizer
+from .optim import OPTIM_STATE, clip_global_norm, make_optimizer
 
 EPS = 1e-20
 LOSS_KEYS = ("rpn_class_loss", "rpn_bbox_loss", "mrcnn_class_loss",
@@ -129,8 +137,6 @@ class TrainState:
 
 def create_train_state(cfg, model: torch.nn.Module) -> TrainState:
     """Optimizer and a zero buffer for ``model`` (on its device)."""
-    if cfg.DEV.DIS_REG_LOSS:
-        raise NotImplementedError("DEV.DIS_REG_LOSS")
     device = next(model.parameters()).device
     buf, cnt = init_buffer(cfg.DEV.BUFFER_SIZE if cfg.DEV.SWITCH else 1,
                            cfg.DATASET.NUM_CLASSES, device=device)
@@ -139,17 +145,32 @@ def create_train_state(cfg, model: torch.nn.Module) -> TrainState:
 
 def load_trainer_state(state: TrainState, payload: Dict[str, object]) -> None:
     """Load ``utils/convert_weights.py::from_jax_train_state``'s output (or
-    a checkpoint's equivalent parts) into ``state``: weights, momentum,
-    buffer and step."""
+    a checkpoint's equivalent parts) into ``state``: weights and BN
+    statistics, the optimizer's state (``payload["optim"]``: per slot of
+    :data:`~.optim.OPTIM_STATE`, port parameter name -> tensor, and Adam's
+    step ``count``), buffer and step. The payload's optimizer must be the
+    state's."""
     model = state.model
     device = next(model.parameters()).device
     model.load_state_dict(payload["model"], strict=True)
+    optim = payload["optim"]
+    opt = state.optimizer
+    method = "sgd" if isinstance(opt, torch.optim.SGD) else opt.param_groups[0]["method"]
+    if set(optim) - {"count"} != set(OPTIM_STATE[method]):
+        raise ValueError(f"the payload holds {sorted(optim)}, the {method} optimizer "
+                         f"{OPTIM_STATE[method]}")
     for name, p in model.named_parameters():
-        state.optimizer.state[p]["momentum_buffer"] = (
-            payload["momentum"][name].to(device=device, dtype=p.dtype).clone())
+        for slot in OPTIM_STATE[method]:
+            opt.state[p][slot] = optim[slot][name].to(device=device, dtype=p.dtype).clone()
+    if "count" in optim:
+        opt.param_groups[0]["count"] = int(optim["count"])
     state.buffer = payload["buffer"].to(device).clone()
     state.buffer_cnt = payload["buffer_cnt"].to(device).clone()
     state.step = int(payload["step"])
+
+
+# the losses DEV.DIS_REG_LOSS reads as 0 and still trains
+REG_LOSS_KEYS = ("rpn_bbox_loss", "mrcnn_bbox_loss", "mrcnn_mask_loss")
 
 
 def train_step(state: TrainState, cfg, batch: Dict[str, torch.Tensor], lr: float,
@@ -163,8 +184,12 @@ def train_step(state: TrainState, cfg, batch: Dict[str, torch.Tensor], lr: float
     level)."""
     model, opt = state.model, state.optimizer
     out = model.forward_train(batch["images"], batch["gt_class_ids"], batch["gt_boxes"],
-                              batch["gt_masks"], generator=generator, draws=draws)
+                              batch["gt_masks"], generator=generator, draws=draws,
+                              train_bn=bool(cfg.TRAIN.BN_LEARN))
     detailed = {k: out[k] for k in LOSS_KEYS}
+    if cfg.DEV.DIS_REG_LOSS:
+        for k in REG_LOSS_KEYS:
+            detailed[k] = detailed[k] - detailed[k].detach()
     total = sum(detailed.values())
     zero = total.new_zeros(())
     meta, big_loss = zero, zero

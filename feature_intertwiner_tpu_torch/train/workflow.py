@@ -4,8 +4,9 @@ COCO evaluation.
 Port of ``feature_intertwiner_tpu/train/workflow.py``:
 
 - :class:`Trainer` holds the model, the :class:`TrainState` and the
-  epoch/iteration counters; :meth:`Trainer.resume` restarts from the newest
-  checkpoint;
+  epoch/iteration counters; :meth:`Trainer.resume` seeds ``big_fc`` from
+  the classifier under ``DEV.BIG_FC_INIT coco_pretrain``, then restarts
+  from the newest checkpoint;
 - :func:`train_model` runs one stage ('heads', '4+', 'all') over the epochs
   the cumulative ``TRAIN.SCHEDULE`` gives it, skipping a stage a resumed run
   has finished;
@@ -40,9 +41,10 @@ import torch
 from ..evaluation import COCOeval
 from ..evaluation.rle import RLE
 from ..inference import detect
+from ..utils.convert_weights import apply_cross_name_init
 from ..utils.logging import MetricsLogger, format_loss_line, print_log
 from . import checkpoint as ckpt
-from .optim import learning_rate, set_trainable
+from .optim import flax_paths, learning_rate, set_trainable
 from .step import create_train_state, train_step
 
 STAGE_ORDER = {"heads": 1, "4+": 2, "all": 3}
@@ -57,7 +59,9 @@ def iteration_seed(seed: int, epoch: int, iteration: int) -> int:
 class Trainer:
     """The model, its :class:`TrainState` and the epoch and iteration
     counters, across stages. The model stays in ``eval()``: BN uses its
-    running statistics in training (the JAX package's ``strict_quirks``)."""
+    running statistics in training (the JAX package's ``strict_quirks``),
+    but within a step under ``TRAIN.BN_LEARN`` (``train/step.py``), so that
+    validation and inference read the running statistics."""
 
     def __init__(self, model: torch.nn.Module, cfg):
         self.model = model.eval()
@@ -70,7 +74,14 @@ class Trainer:
             os.path.join(cfg.MISC.RESULT_FOLDER or ".", "metrics.jsonl"))
 
     def resume(self) -> "Trainer":
-        """Restart from the newest checkpoint of the run, if there is one."""
+        """Apply ``DEV.BIG_FC_INIT_LIST`` (``coco_pretrain``: ``big_fc``
+        from the classifier's ``linear_class``, JAX ``Trainer.resume``),
+        then restart from the newest checkpoint of the run, if there is
+        one."""
+        if self.cfg.DEV.SWITCH and self.cfg.DEV.BIG_FC_INIT_LIST:
+            apply_cross_name_init(self.model, self.cfg.DEV.BIG_FC_INIT_LIST,
+                                  flax_paths(self.model),
+                                  log_fn=lambda m: print_log(m, self.cfg.MISC.LOG_FILE))
         path = ckpt.resolve_init(self.cfg, self.cfg.MISC.RESULT_FOLDER)
         if path and ckpt.CKPT_RE.search(os.path.basename(path)):
             self.state, epoch, it = ckpt.restore_checkpoint(path, self.state)

@@ -25,8 +25,9 @@ that every port parameter and buffer was filled.
 :func:`flax_module_path` is the inverse map, from a port module name to its
 flax path (the trainer applies the JAX package's stage regexes to it), and
 :func:`from_jax_train_state` turns a JAX ``TrainState`` (params, BN
-statistics, the SGD momentum traces, the intertwiner buffer) into the port
-trainer's state.
+statistics, the optimizer's state, the intertwiner buffer) into the port
+trainer's state. :func:`apply_cross_name_init` copies one parameter into
+another by their flax paths (``DEV.BIG_FC_INIT_LIST``).
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ _MODULES = (
     (r"dev/critic/bn2", r"dev_roi.feat_extract.4"),
     (r"dev/critic/conv3", r"dev_roi.feat_extract.6"),
     (r"dev/critic/bn3", r"dev_roi.feat_extract.7"),
+    (r"dev/big_fc", r"dev_roi.big_fc_layer"),
     (r"ot_loss/g_conv", r"ot_loss.G_net.0"),
     (r"ot_loss/critic_conv", r"ot_loss.critic.0"),
     (r"ot_loss/critic_fc", r"ot_loss.critic"),
@@ -100,6 +102,7 @@ _FLAX_MODULES = (
     (r"dev_roi\.feat_extract\.4", r"dev/critic/bn2"),
     (r"dev_roi\.feat_extract\.6", r"dev/critic/conv3"),
     (r"dev_roi\.feat_extract\.7", r"dev/critic/bn3"),
+    (r"dev_roi\.big_fc_layer", r"dev/big_fc"),
     (r"ot_loss\.G_net\.0", r"ot_loss/g_conv"),
     (r"ot_loss\.critic\.0", r"ot_loss/critic_conv"),
     (r"ot_loss\.critic", r"ot_loss/critic_fc"),
@@ -185,20 +188,61 @@ def from_jax_params(params, batch_stats) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _param_tree(tree) -> Dict[str, torch.Tensor]:
+    """A parameter-shaped optax state tree as port parameter name -> tensor."""
+    return {k: v for k, v in from_jax_params(tree, {}).items()
+            if not k.endswith("num_batches_tracked")}
+
+
 def from_jax_train_state(state) -> Dict[str, object]:
-    """A JAX ``TrainState`` (``feature_intertwiner_tpu/train/step.py``) with
-    the SGD chain ``masked(add_decayed_weights) -> trace`` -> the port
-    trainer's state: ``model`` (a state_dict, from ``params`` and
-    ``batch_stats``), ``momentum`` (port parameter name -> the trace, laid
-    out as the parameter), ``buffer``, ``buffer_cnt`` and ``step``. Load it
-    with ``train/step.py::load_trainer_state``."""
+    """A JAX ``TrainState`` (``feature_intertwiner_tpu/train/step.py``) ->
+    the port trainer's state: ``model`` (a state_dict, from ``params`` and
+    ``batch_stats``), ``optim`` (the optimizer's state per slot, port
+    parameter name -> tensor laid out as the parameter), ``buffer``,
+    ``buffer_cnt`` and ``step``. ``optim`` reads the chain of the JAX
+    ``make_optimizer``: SGD's ``masked(add_decayed_weights) -> trace`` gives
+    ``momentum_buffer`` (the trace); Adam's ``add_decayed_weights ->
+    scale_by_adam`` ``mu``, ``nu`` and its step ``count``; RMSprop's
+    ``add_decayed_weights -> scale_by_stddev -> trace`` ``mu``, ``nu`` and
+    ``trace``. Load it with ``train/step.py::load_trainer_state``."""
     model = from_jax_params(state.params, state.batch_stats)
-    trace = from_jax_params(state.opt_state[1].trace, {})
-    momentum = {k: v for k, v in trace.items() if not k.endswith("num_batches_tracked")}
+    chain = state.opt_state
+    if "nu" in chain[-1]._fields:                       # scale_by_adam
+        optim = {"mu": _param_tree(chain[-1].mu), "nu": _param_tree(chain[-1].nu),
+                 "count": int(np.asarray(chain[-1].count))}
+    elif len(chain) == 3:                               # scale_by_stddev -> trace
+        optim = {"mu": _param_tree(chain[1].mu), "nu": _param_tree(chain[1].nu),
+                 "trace": _param_tree(chain[2].trace)}
+    else:                                               # masked decay -> trace
+        optim = {"momentum_buffer": _param_tree(chain[1].trace)}
     return {
         "model": model,
-        "momentum": momentum,
+        "optim": optim,
         "buffer": torch.from_numpy(np.asarray(state.buffer, np.float32)),
         "buffer_cnt": torch.from_numpy(np.asarray(state.buffer_cnt, np.float32)),
         "step": int(np.asarray(state.step)),
     }
+
+
+def apply_cross_name_init(model: torch.nn.Module, init_list: Dict[str, str], paths: Dict[str, str],
+                          log_fn=print) -> None:
+    """Copy parameters between differently named leaves of ``model``, in
+    place: ``init_list`` maps flax parameter paths {target: source} (the JAX
+    ``apply_cross_name_init`` over ``DEV.BIG_FC_INIT_LIST``, e.g.
+    ``dev/big_fc/kernel`` from ``classifier/linear_class/kernel``), and
+    ``paths`` is each port parameter's flax path (``train/optim.py::
+    flax_paths``). A pair whose leaf is missing, or whose shapes differ, is
+    skipped and logged, as there."""
+    by_path = {path: name for name, path in paths.items()}
+    params = dict(model.named_parameters())
+    for dst, src in (init_list or {}).items():
+        if src not in by_path or dst not in by_path:
+            log_fn(f"[cross-init] skip {dst} <- {src} (missing)")
+            continue
+        target, source = params[by_path[dst]], params[by_path[src]]
+        if target.shape != source.shape:
+            log_fn(f"[cross-init] skip {dst} <- {src} (shape mismatch)")
+            continue
+        with torch.no_grad():
+            target.copy_(source)
+        log_fn(f"[cross-init] {dst} <- {src}")

@@ -87,16 +87,18 @@ def _draw(tree, rng):
     return out
 
 
-def makeup_steps(name, dtypes=(torch.float32,), layers="all"):
+def makeup_steps(name, dtypes=(torch.float32,), layers="all", model_kw=None, opts=None):
     """One train step of stage ``layers`` of both packages in each of
-    ``dtypes`` for the configuration ``name``, from the same float32 weights (drawn by
+    ``dtypes`` for the configuration ``name`` (or, with ``model_kw`` and
+    ``opts``, for the model keywords and config options given), from the same float32 weights (drawn by
     :func:`_draw`, BN and biases by ``_redraw``, gates in [0, 1), the FPN
     tempered), batch, draws and proposals: the float32 port model's, kept
     ``EDGE`` inside the image. Returns the weights, the images, the
     models before their step, and per dtype the JAX (metrics, state) and
-    the port's (metrics, state)."""
-    model_kw = dict(TINY, **STEP_MODEL, **CONFIGS[name])
-    opts = list(FLAGSHIP_OVERRIDES) + STEP_OPTS + CONFIG_OPTS[name]
+    the port's (metrics, state); and what a further port step needs (cfg,
+    batch, draws, the fixed proposals' ``propose``)."""
+    model_kw = dict(TINY, **STEP_MODEL, **(CONFIGS[name] if model_kw is None else model_kw))
+    opts = list(FLAGSHIP_OVERRIDES) + STEP_OPTS + (CONFIG_OPTS[name] if opts is None else opts)
     with pytest.MonkeyPatch.context() as mp:
         rng = np.random.RandomState(0)
         images = (rng.randn(2, IMG, IMG, 3) * 40).astype(np.float32)
@@ -150,7 +152,8 @@ def makeup_steps(name, dtypes=(torch.float32,), layers="all"):
                              draws=draws)
         port_steps[dtype] = ({k: float(v) for k, v in metrics.items()}, state)
     return dict(name=name, variables=variables, images=images, proposals=proposals,
-                before=before, jax=jax_steps, port=port_steps, model_kw=model_kw)
+                before=before, jax=jax_steps, port=port_steps, model_kw=model_kw, cfg=cfg,
+                batch=batch, draws=draws, propose=first._propose, layers=layers)
 
 
 def check_float32_step(step):

@@ -359,7 +359,7 @@ def test_weight_round_trip_through_reference_names(slice_pair):
 
 def test_from_jax_params_rejects_unknown_leaves():
     with pytest.raises(ValueError, match="no port module"):
-        from_jax_params({"dev": {"big_fc": {"kernel": np.zeros((1024, 4))}}}, {})
+        from_jax_params({"dev": {"small_fc": {"kernel": np.zeros((1024, 4))}}}, {})
     with pytest.raises(ValueError, match="unknown leaf"):
         from_jax_params({"dev": {"critic": {"conv1": {"gate": np.zeros(4)}}}}, {})
 
