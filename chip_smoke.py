@@ -186,6 +186,18 @@ Phases, each of which must pass:
    learning makes these gradients ill-conditioned at this size, ROADMAP §C)
    as one vector within 1e-5 of its norm plus four times the CPU's own
    float32 error.
+20. assign_roipool_path: the flagship at full width in bfloat16 under
+   set C (``DEV.ASSIGN_BOX_ON_ALL_SCALE`` with ``RPN.ANCHOR_STRIDE 2``) and
+   set D (``ROIS.METHOD roi_pool``), counted from 0: ``detect()`` of the two
+   images (C: K1 2, D: K1 0; K2 at least 2; K1 and K2 bit-equal to their
+   plain versions) and one 'all' train step (C: K1 2, K4 4 (the reliable
+   sets of P2-P5), K3 2; D: no K1, K4 or K3; K2 at least 1), finite losses
+   and outputs; under C every K4 call bit-equal to its plain version, the
+   P5 call timed beside its float32 kernel, plain version and bound, K3
+   within one bfloat16 rounding; both sets' ``detect()`` and step paired in
+   turns with the flagship's (medians of 6), the peak memory of each, set
+   D's step by kernel family and aten op; then each set on a small model
+   card against CPU, to the tolerances of 8.
 ``roi_single`` also runs the ``crop`` sweep on a bfloat16 map (K4 and K5
 bit-equal to their plain versions), and ``window_probe`` K6 on C = 3 and
 on a map one channel off a pair (one channel a lane).
@@ -255,6 +267,14 @@ OPTION_SETS = {
     "A": ["TRAIN.OPTIM_METHOD", "adam", "TRAIN.BN_LEARN", "True", "DEV.BIG_SUPERVISE", "True",
           "DEV.BIG_FEAT_DETACH", "False", "DEV.BIG_FC_INIT", "coco_pretrain"],
     "B": ["TRAIN.OPTIM_METHOD", "rmsprop", "DEV.DIS_REG_LOSS", "True", "DEV.BASELINE", "True"],
+}
+# ROADMAP A6 and A7 as two option sets (assign_roipool_path): C, the
+# all-scale RoI levels (meta levels 2-5, RoIs too big for every level on
+# level 6) with one anchor every second cell; D, RoIPool for the heads and
+# the reliable sets
+ASSIGN_SETS = {
+    "C": ["DEV.ASSIGN_BOX_ON_ALL_SCALE", "True", "RPN.ANCHOR_STRIDE", "2"],
+    "D": ["ROIS.METHOD", "roi_pool"],
 }
 # the kernels a train step launches, by their launch counters
 TRAIN_KERNELS = ("roi_align_fwd", "crop_and_resize_grouped", "roi_align_bwd", "nms_alive")
@@ -3271,6 +3291,237 @@ def main() -> int:
             options_small(name)
 
     phase("train_options_path", train_options_path)
+
+    def assign_launches_ok(name, launches):
+        """One train step's launches: under C K1 2, K4 4 (the big-set crops of
+        P2-P5), K3 2, K2 at least 1; under D (RoIPool, plain PyTorch) K1, K4
+        and K3 none, K2 at least 1."""
+        c = name == "C"
+        return (launches["roi_align_fwd"] == (2 if c else 0)
+                and launches["crop_and_resize_grouped"] == (4 if c else 0)
+                and launches["roi_align_bwd"] == (2 if c else 0)
+                and launches["nms_alive"] >= 1)
+
+    def hold_k3_bf16(calls, label):
+        """Each recorded bfloat16 K3 call within one bfloat16 rounding of its
+        plain version and bit-equal over two launches; returns the largest
+        difference over the largest gradient."""
+        rel = 0.0
+        for args, kwargs in calls:
+            require(args[0].dtype == torch.bfloat16, f"{label}: K3's cotangent is not bfloat16")
+            got = roi_ops.roi_align_bwd(*args, **kwargs)
+            again = roi_ops.roi_align_bwd(*args, **kwargs)
+            want = roi_ops.multilevel_gather_bwd_plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            for a, b, c in zip(got, again, want):
+                require(a.dtype == torch.bfloat16 and torch.equal(a, b),
+                        f"{label}: two bf16 K3 launches differ")
+                tol = 2.0 ** -7 * c.float().abs() + 1e-5 * c.float().abs().max()
+                require(float(((a.float() - c.float()).abs() - tol).max()) <= 0,
+                        f"{label}: bf16 K3 beyond one rounding of its plain version")
+                rel = max(rel, float((a.float() - c.float()).abs().max()
+                                     / c.float().abs().max().clamp_min(1e-30)))
+        return rel
+
+    def assign_detect(name):
+        """``detect()`` of the two images by the flagship under set ``name`` in
+        bfloat16, counted from 0: K1 2 under C (7² classifier, 14² mask,
+        level 6 on P5) and 0 under D, K2 at least 2; finite outputs of the
+        main path's shapes; K1 and K2 bit-equal to their plain versions; its
+        peak memory. Returns a call of it and the peak memory in GiB."""
+        label = f"ASSIGN {name} MAIN [bfloat16]"
+        icfg = build_config("meta_105_quick_1", "inference",
+                            opts=list(FLAGSHIP_OVERRIDES) + ASSIGN_SETS[name])
+        model = seeded_model(build_model, icfg, seed=0, dtype=torch.bfloat16)
+        detect(model, images, icfg)                    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.launches.clear()
+        with Recorder(roi_ops, "roi_align_fwd") as roi_rec, \
+                Recorder(nms_ops, "nms_alive") as nms_rec:
+            results = detect(model, images, icfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {k: cuda_build.launches[k] for k in TRAIN_KERNELS}
+        log(f"{label} LAUNCHES " + json.dumps(launches))
+        require(launches["roi_align_fwd"] == (2 if name == "C" else 0)
+                and launches["nms_alive"] >= 2 and launches["crop_and_resize_grouped"] == 0
+                and launches["roi_align_bwd"] == 0, f"{label} launches {launches}")
+        molded, windows = mold_inputs(images, icfg, "cuda")
+        with torch.inference_mode():
+            out = model.forward_inference(molded, windows)
+            rows = hold_k1(roi_rec.calls, label)
+            mism = sum(int((nms_ops.nms_alive(*a, **k) != nms_ops.greedy_alive_sorted_plain(
+                *a, **k)).sum()) for a, k in nms_rec.calls)
+        det, masks = out["detections"], out["masks"]
+        require(det.shape == (2, 100, 6) and masks.shape == (2, 100, 28, 28)
+                and bool(torch.isfinite(det).all() and torch.isfinite(masks).all())
+                and bool(((masks >= 0) & (masks <= 1)).all()), f"{label} outputs")
+        n_det = [int((det[i, :, 5] > 0).sum()) for i in range(2)]
+        require(sum(n_det) > 0 and mism == 0, f"{label}: detections {n_det}, K2 differs "
+                f"from its plain version in {mism} values")
+        log(f"{label} detections per image {n_det}, {sum(len(r['class_ids']) for r in results)} "
+            f"after unmolding; peak memory {peak:.2f} GiB (torch.cuda.max_memory_allocated); "
+            f"K1 {[r[0] for r in rows]} bit-equal to its plain version")
+        return (lambda: detect(model, images, icfg)), peak
+
+    def assign_loader(tcfg):
+        """The train path's 8 synthetic 1024² images at ``tcfg``'s batch."""
+        from feature_intertwiner_tpu_torch.data import synthetic
+        from feature_intertwiner_tpu_torch.data.loader import DetectionDataset, Loader
+
+        data = synthetic.generate(num_images=8, **TRAIN_DATA)
+        return Loader(DetectionDataset(data, tcfg, augment=True, seed=tcfg.MISC.SEED),
+                      batch_size=tcfg.TRAIN.BATCH_SIZE, shuffle=True, seed=tcfg.MISC.SEED)
+
+    def assign_train(name):
+        """One 'all' train step of the flagship recipe under set ``name`` at
+        full width in bfloat16 (R101-FPN, 1024², batch 4, 200 RoIs per image),
+        counted from 0 (:func:`assign_launches_ok`), finite losses, its peak
+        memory; under C every K4 call bit-equal to its plain version, the P5
+        call (the reliable set of meta level 5) timed beside its plain
+        version and bound, K3 within one bfloat16 rounding. Returns a call
+        of the step (on the same batch) and the peak memory in GiB."""
+        from feature_intertwiner_tpu_torch.train import workflow
+
+        label = f"ASSIGN {name} TRAIN [bfloat16]"
+        tcfg = build_config("meta_105_quick_1", "train",
+                            opts=list(FLAGSHIP_OVERRIDES) + ASSIGN_SETS[name])
+        require(tcfg.TRAIN.BATCH_SIZE == 4 and tcfg.ROIS.TRAIN_ROIS_PER_IMAGE == 200
+                and tcfg.DATA.IMAGE_MAX_DIM == 1024 and tcfg.MODEL.BACKBONE == "resnet101"
+                and tcfg.TPU.COMPUTE_DTYPE == "bfloat16", f"{label}: not at full width")
+        trainer = workflow.Trainer(temper_fpn(seeded_model(build_model, tcfg, seed=0,
+                                                           dtype=torch.bfloat16)), tcfg)
+        workflow.set_trainable(trainer.model, "all")
+        batch = workflow.to_device(next(iter(assign_loader(tcfg))), "cuda")
+        gen = torch.Generator(device="cuda")
+        dev = trainer.model.dev_roi
+        require(dev.meta_levels == ((2, 3, 4, 5) if name == "C" else (2, 3, 4))
+                and dev.roi_method == ("roi_align" if name == "C" else "roi_pool")
+                and trainer.model.rpn.conv_shared.stride == ((2, 2) if name == "C" else (1, 1)),
+                f"{label}: the model is not the option set's")
+
+        def one():
+            gen.manual_seed(0)
+            return workflow.train_step(trainer.state, tcfg, batch, 1e-4, 1.0, gen)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with Recorder(roi_ops, "roi_align_bwd") as bwd_rec, \
+                Recorder(roi_ops, "crop_and_resize_grouped") as k4_rec:
+            cuda_build.launches.clear()
+            metrics = {k: float(v) for k, v in one().items()}
+            torch.cuda.synchronize()
+            launches = {k: cuda_build.launches[k] for k in TRAIN_KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"{label} LAUNCHES per step " + json.dumps(launches) + " | "
+            + " ".join(f"{k.replace('_loss', '')} {metrics[k]:.5g}" for k in (
+                "total_loss", "rpn_class_loss", "rpn_bbox_loss", "mrcnn_class_loss",
+                "mrcnn_bbox_loss", "mrcnn_mask_loss", "meta_loss"))
+            + f" | positives {metrics['positive_rois']:.0f} | small RoIs per meta level "
+            + "/".join(f"{metrics[f'small_rois_p{lv}']:.0f}" for lv in dev.meta_levels))
+        require(assign_launches_ok(name, launches), f"{label} launches {launches}")
+        require(all(math.isfinite(v) for k, v in metrics.items() if k.endswith("_loss")),
+                f"{label}: a non-finite loss")
+        extra = ""
+        if name == "C":
+            require(held_k4(k4_rec.calls) == 0, f"{label}: K4 differs from its plain version")
+            p5 = [(a, k) for a, k in k4_rec.calls if a[0].shape[1] == 1024 // 32]
+            require(len(p5) == 1, f"{label}: {len(p5)} K4 calls on P5")
+            (args, kwargs), = p5
+            image, boxes, crop = args[0], args[1], args[2]
+            with torch.no_grad():
+                k_ms = cuda_ms(torch, lambda: k4_wrapper(*args, **kwargs), 10)
+                wide = (image.float(),) + tuple(args[1:])
+                k32_ms = cuda_ms(torch, lambda: k4_wrapper(*wide, **kwargs), 10)
+                p_ms = cuda_ms(torch, lambda: roi_ops.crop_and_resize_grouped_plain(
+                    *args, **kwargs), 3)
+                nbytes, rows_, ops, b_ms = k45_bound(torch, roi_ops, image.float(), boxes,
+                                                     tuple(crop), positions="xla")
+                k3_rel = hold_k3_bf16(bwd_rec.calls, label)
+            cuda_build.launches["crop_and_resize_grouped"] = launches["crop_and_resize_grouped"]
+            require(len(bwd_rec.calls) == 2, f"{label}: {len(bwd_rec.calls)} K3 calls")
+            extra = (f"; K4 on P5 {tuple(image.shape)} {str(image.dtype).split('.')[-1]}, "
+                     f"{boxes.shape[0] * boxes.shape[1]} boxes at {tuple(crop)}: bit-equal to "
+                     f"its plain version, {k_ms:.4f} ms (the float32 kernel on the widened map "
+                     f"{k32_ms:.4f} ms), float32 bound {b_ms:.6f} ms ({nbytes} "
+                     f"bytes, {rows_} tap rows, {ops} ops), plain {p_ms:.4f} ms; K3 within one "
+                     f"bfloat16 rounding, largest difference {k3_rel:.3g} of the largest "
+                     f"gradient")
+        del bwd_rec, k4_rec
+        log(f"{label} peak memory of the counted step {peak:.2f} GiB "
+            f"(torch.cuda.max_memory_allocated)" + extra)
+        return one, peak
+
+    def assign_roipool_path():
+        """ROADMAP A6 and A7 at full width in bfloat16: set C
+        (``DEV.ASSIGN_BOX_ON_ALL_SCALE`` with ``RPN.ANCHOR_STRIDE 2``) and
+        set D (``ROIS.METHOD roi_pool``), each ``detect()`` of the two images
+        (:func:`assign_detect`) and one 'all' train step
+        (:func:`assign_train`); both paired in turns with the flagship's
+        (medians of 6), with their and the flagship's peak memory, and set
+        D's step by kernel family and aten op; then each set on a small
+        model card against CPU: the second stage on the same proposals and
+        one float32 train step, at the tolerances of ``reference``."""
+        from feature_intertwiner_tpu_torch.train import workflow
+
+        t0 = time.perf_counter()
+        detects, steps, peaks = {}, {}, {}
+        for name in ("C", "D"):
+            detects[name], peaks[f"{name} detect()"] = assign_detect(name)
+            steps[name], peaks[f"{name} step"] = assign_train(name)
+        icfg = build_config("meta_105_quick_1", "inference", opts=list(FLAGSHIP_OVERRIDES))
+        flagship = seeded_model(build_model, icfg, seed=0, dtype=torch.bfloat16)
+        detects["flagship"] = lambda: detect(flagship, images, icfg)
+        detects["flagship"]()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        detects["flagship"]()
+        torch.cuda.synchronize()
+        peaks["flagship detect()"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        detect_ms, detect_runs = paired(detects, 3)
+        tcfg = build_config("meta_105_quick_1", "train", opts=list(FLAGSHIP_OVERRIDES))
+        t1 = workflow.Trainer(temper_fpn(seeded_model(build_model, tcfg, seed=0,
+                                                      dtype=torch.bfloat16)), tcfg)
+        workflow.set_trainable(t1.model, "all")
+        gen = torch.Generator(device="cuda")
+        batch = workflow.to_device(next(iter(assign_loader(tcfg))), "cuda")
+
+        def flagship_step():
+            gen.manual_seed(0)
+            workflow.train_step(t1.state, tcfg, batch, 1e-4, 1.0, gen)
+
+        steps["flagship"] = flagship_step
+        flagship_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flagship_step()
+        torch.cuda.synchronize()
+        peaks["flagship step"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms, step_runs = paired(steps, 3, events=True)
+        for what, ms, runs in (("detect() of 2 (host clock)", detect_ms, detect_runs),
+                               ("'all' step (CUDA events)", step_ms, step_runs)):
+            log(f"ASSIGN {what} ms [bfloat16], medians of 6 in turns: " + "; ".join(
+                f"{k} {v:.2f} (runs {', '.join(f'{x:.2f}' for x in runs[k])})"
+                for k, v in ms.items()))
+        log("ASSIGN peak memory [bfloat16] (torch.cuda.max_memory_allocated, GiB): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
+            + f"; {time.perf_counter() - t0:.1f} s")
+        # where set D's time goes: RoIPool is plain PyTorch
+        log_breakdown("ASSIGN D TRAIN BREAKDOWN one 'all' step bfloat16",
+                      *profile_by_family(torch, steps["D"], 1, families))
+        log("ASSIGN D TRAIN the aten ops of one 'all' step with the most device time:")
+        for ms_, n_, op, shapes in top_ops(torch, steps["D"]):
+            log(f"    {ms_:9.3f} ms  {n_:4d} calls  {op}  {str(shapes)[:110]}")
+        del detects, steps, flagship, t1, batch
+        torch.cuda.empty_cache()
+        for name in ("C", "D"):
+            small_second_stage(build_config("smoke_small", "inference",
+                                            opts=small_opts + ASSIGN_SETS[name]),
+                               f"ASSIGN {name} REFERENCE")
+            small_step_checked(small_opts + ASSIGN_SETS[name], f"ASSIGN {name} REFERENCE")
+
+    phase("assign_roipool_path", assign_roipool_path)
 
     if failures:
         log("FAILED phases: " + ", ".join(failures))

@@ -17,8 +17,10 @@ builds it; ``--phase inference`` re-types it to ``TEST.DTYPE`` where that is
 set and differs. TF32 is off for the float32 convolutions and matmuls.
 
 ``--synthetic_data`` builds the JAX package's synthetic set (8 images) in
-memory, with its COCO ground truth. What is not ported yet raises
-``NotImplementedError``: ``--phase visualize`` and COCO data on disk.
+memory, with its COCO ground truth. Every model option of the config
+builds (``DEV.STRUCTURE`` other than beta raises in both packages); what is
+not ported yet raises ``NotImplementedError``: ``--phase visualize`` and
+COCO data on disk.
 """
 
 from __future__ import annotations

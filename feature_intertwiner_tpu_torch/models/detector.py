@@ -69,6 +69,7 @@ class InterNet(nn.Module):
         mask_shape: tuple = (28, 28),
         assign_base: float = 224.0,
         roi_method: str = "roi_align",
+        roi_pool_window_cap: int = 8,
         bbox_std: tuple = (0.1, 0.1, 0.2, 0.2),
         det_max_instances: int = 100,
         det_nms_threshold: float = 0.3,
@@ -133,6 +134,7 @@ class InterNet(nn.Module):
             channels=fpn_channels, image_size=image_size,
             assign_base=assign_base, use_dev=dev_switch,
             structure=dev_structure, roi_method=roi_method,
+            window_cap=roi_pool_window_cap,
             upsample_fac=dev_upsample_fac,
             upsample_init=dev_upsample_init,
             upsample_residual=dev_upsample_residual,
@@ -196,6 +198,7 @@ class InterNet(nn.Module):
             mask_shape=tuple(cfg.MRCNN.MASK_SHAPE),
             assign_base=cfg.ROIS.ASSIGN_ANCHOR_BASE,
             roi_method=cfg.ROIS.METHOD,
+            roi_pool_window_cap=cfg.ROIS.WINDOW_CAP,
             bbox_std=tuple(float(x) for x in cfg.DATA.BBOX_STD_DEV),
             det_max_instances=cfg.TEST.DET_MAX_INSTANCES,
             det_nms_threshold=cfg.TEST.DET_NMS_THRESHOLD,
@@ -264,12 +267,15 @@ class InterNet(nn.Module):
         whose vectors join the classifier."""
         b, r, _ = proposals.shape
         size = image_size or self.image_size
-        maps = self.dev_roi.pooling_maps(feats)
-        pooled = self.dev_roi.pool(maps, proposals, self.pool_size, size)
+        dev = self.dev_roi
+        widths = [f.shape[3] for f in feats]
+        maps = dev.pooling_maps(feats)
+        lvl = dev.levels(proposals, widths, size)
+        pooled = dev.pool(maps, proposals, self.pool_size, size, lvl)
         small = ()
-        if self.classifier.merge_feat and not self.dev_roi.baseline:
-            small = self.dev_roi.small_features(
-                self.dev_roi.pool(maps, proposals, self.mask_pool_size, size), proposals, size)
+        if self.classifier.merge_feat and not dev.baseline:
+            small = dev.small_features(
+                dev.pool(maps, proposals, self.mask_pool_size, size, lvl), proposals, size, lvl)
         _, probs, bbox, _ = self.classifier(pooled, *small)
         detections, _, _ = detection_layer(
             proposals, probs.reshape(b, r, self.num_classes),
@@ -282,7 +288,8 @@ class InterNet(nn.Module):
             return {"detections": detections}
 
         det_boxes = detections[..., :4] / float(size)
-        masks = self.mask(self.dev_roi.pool(maps, det_boxes, self.mask_pool_size, size))
+        masks = self.mask(dev.pool(maps, det_boxes, self.mask_pool_size, size,
+                                   dev.levels(det_boxes, widths, size)))
         mh, mw = self.mask_shape
         masks = masks.reshape(b, self.det_max_instances, mh, mw, self.num_classes)
         # each detection's own class, selected on the device

@@ -180,8 +180,8 @@ def train_step(state: TrainState, cfg, batch: Dict[str, torch.Tensor], lr: float
     tensors on the model's device). Updates ``state`` in place and returns
     the metrics as tensors (no host sync): the five losses, total_loss,
     meta_loss, big_loss, fpn_ot_loss, grad_norm (with CLIP_GRAD),
-    positive_rois and small_rois_p2..p4 (small RoIs of a class per meta
-    level)."""
+    positive_rois and small_rois_p<l> (small RoIs of a class per meta level
+    l: 2-4, or 2-5 under ``DEV.ASSIGN_BOX_ON_ALL_SCALE``)."""
     model, opt = state.model, state.optimizer
     out = model.forward_train(batch["images"], batch["gt_class_ids"], batch["gt_boxes"],
                               batch["gt_masks"], generator=generator, draws=draws,
@@ -219,7 +219,7 @@ def train_step(state: TrainState, cfg, batch: Dict[str, torch.Tensor], lr: float
                    big_loss=big_loss.detach(), fpn_ot_loss=fpn_ot.detach(),
                    positive_rois=out["positive_rois"])
     if stats is not None:
-        for i, level in enumerate((2, 3, 4)):
+        for i, level in enumerate(model.dev_roi.meta_levels):
             metrics[f"small_rois_p{level}"] = stats["small_cnt"][i].sum()
     if cfg.TRAIN.CLIP_GRAD:
         metrics["grad_norm"] = clip_global_norm([p.grad for p in params],

@@ -25,6 +25,8 @@
   an unknown ``UPSAMPLE_INIT`` raises ``ValueError`` in both packages.
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import math
 
 import jax

@@ -30,6 +30,8 @@
   for ``--phase inference``.
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import json
 import os
 

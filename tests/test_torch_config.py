@@ -1,5 +1,7 @@
 """The port's config: a faithful copy of the JAX package's, plus ``CUDA``."""
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import glob
 import os
 

@@ -25,6 +25,8 @@ random boxes the folded ratio and a ratio rounded as one division,
 many rounded mask-target pixels the Pallas rounding flips.
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,8 @@
   evaluation at the end of a training stage with ``TRAIN.DO_VALIDATION``.
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import json
 import os
 

@@ -2,6 +2,8 @@
 the JAX package; PyYAML only inside the function that reads YAML; and its
 entry points run on the GPU unless the caller asks for the CPU."""
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import ast
 import glob
 import os

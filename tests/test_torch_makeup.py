@@ -27,6 +27,8 @@ float32 rounding (1e-6); bfloat16 within twice JAX's own bfloat16 error
 (``test_torch_bf16.assert_bf16_module``).
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import math
 from collections.abc import Mapping
 

@@ -24,6 +24,8 @@ package's laws: the flax init would cost one more compilation of the
 train forward per configuration.
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 from collections.abc import Mapping
 
 import jax

@@ -16,6 +16,8 @@ make-up layer at ``UPSAMPLE_FAC`` 2 and ``CLS_MERGE_FEAT``, on the CPU.
   evaluation gives its 12 stats.
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import json
 
 import numpy as np

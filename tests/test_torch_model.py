@@ -13,6 +13,8 @@ comparison. Detections are rounded to whole pixels, so they are held to
 equal counts and classes, boxes within one pixel and scores within 1e-4.
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 from collections.abc import Mapping
 
 import jax
@@ -36,6 +38,7 @@ from feature_intertwiner_tpu.train import workflow as jax_workflow
 from feature_intertwiner_tpu.utils.convert_weights import convert_reference_state_dict
 from feature_intertwiner_tpu_torch.config import FLAGSHIP_OVERRIDES, build_config
 from feature_intertwiner_tpu_torch.inference import mold_inputs, unmold_detections
+from feature_intertwiner_tpu_torch.models.common import SameConv2d
 from feature_intertwiner_tpu_torch.models.detector import InterNet
 from feature_intertwiner_tpu_torch.models.fpn import FPN
 from feature_intertwiner_tpu_torch.models.heads import BoxHead, MaskHead
@@ -211,9 +214,6 @@ def test_dev_at_inference_matches_flax(use_dev):
 
 
 @pytest.mark.parametrize("variant, value, error", [
-    ("DEV.ASSIGN_BOX_ON_ALL_SCALE", "True", NotImplementedError),
-    ("ROIS.METHOD", "roi_pool", NotImplementedError),
-    ("RPN.ANCHOR_STRIDE", "2", NotImplementedError),
     ("DEV.STRUCTURE", "alpha", NotImplementedError),
     ("DEV.UPSAMPLE_FAC", "3.0", ValueError),            # as JAX raises
 ])
@@ -221,6 +221,37 @@ def test_unported_variants_raise(variant, value, error):
     cfg = build_config(opts=list(FLAGSHIP_OVERRIDES) + [variant, value])
     with pytest.raises(error, match=variant.split(".")[1]):
         InterNet.from_config(cfg)
+
+
+@pytest.mark.parametrize("opts, stride, meta_levels, method, cap", [
+    ([], 1, (2, 3, 4), "roi_align", 8),
+    (["RPN.ANCHOR_STRIDE", "2"], 2, (2, 3, 4), "roi_align", 8),
+    (["DEV.ASSIGN_BOX_ON_ALL_SCALE", "True"], 1, (2, 3, 4, 5), "roi_align", 8),
+    (["ROIS.METHOD", "roi_pool", "ROIS.WINDOW_CAP", "0"], 1, (2, 3, 4), "roi_pool", 0),
+    (["ROIS.METHOD", "roi_pool", "DEV.ASSIGN_BOX_ON_ALL_SCALE", "True", "RPN.ANCHOR_STRIDE",
+      "2"], 2, (2, 3, 4, 5), "roi_pool", 8),
+    # both options act only with the intertwiner on, as in JAX
+    (["DEV.SWITCH", "False", "ROIS.METHOD", "roi_pool", "DEV.ASSIGN_BOX_ON_ALL_SCALE", "True"],
+     1, (2, 3, 4), "roi_align", 8),
+], ids=["flagship", "stride2", "all_scale", "roi_pool_exact_cap", "all_three", "dev_off"])
+def test_variants_build_what_they_name(opts, stride, meta_levels, method, cap):
+    cfg = build_config(opts=list(FLAGSHIP_OVERRIDES) + opts)
+    model = InterNet.from_config(cfg)
+    conv = model.rpn.conv_shared
+    assert conv.stride == (stride, stride)
+    # flax's SAME: padding=1 at stride 1; at stride 2 the map is padded in
+    # the forward, (0, 1) on an even side and (1, 1) on an odd one
+    assert conv.padding == ((1, 1) if stride == 1 else (0, 0))
+    assert isinstance(conv, SameConv2d) == (stride != 1)
+    dev = model.dev_roi
+    assert (dev.meta_levels, dev.roi_method, dev.window_cap) == (meta_levels, method, cap)
+    assert dev.assign_all_scale == (len(meta_levels) == 4)
+    assert model.anchors.shape[0] == sum(
+        3 * (-(-(1024 // s) // stride)) ** 2 for s in (4, 8, 16, 32, 64))
+    if stride == 2:
+        with torch.inference_mode():
+            outs = [conv(torch.zeros(1, 256, n, n)) for n in (8, 7)]
+        assert [tuple(o.shape[2:]) for o in outs] == [(4, 4), (4, 4)]
 
 
 # --- the whole slice ------------------------------------------------------------------

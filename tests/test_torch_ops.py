@@ -10,6 +10,8 @@ port runs its kernels' plain versions. Tolerances:
 - RoIAlign: 1e-5 absolute.
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -25,6 +25,8 @@ on the CPU, at small shapes from seeded numpy inputs.
 The train steps and the command line are in ``test_torch_ot_train.py``.
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import math
 from collections.abc import Mapping
 

@@ -3,6 +3,8 @@ float32 'all' train step of the port against the jitted JAX step, held as
 ``test_torch_ot_train.py`` holds its ``conv_fpn`` case (that module's
 docstring gives the setup and the tolerances)."""
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import pytest
 
 from test_torch_ot_train import _steps, check_float32_step

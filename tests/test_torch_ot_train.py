@@ -32,6 +32,8 @@ The 1-D OT has almost no gradient (rows of dimension 1: the cosine cost is
 expects the ``ot_loss`` weights to move beyond what JAX moves them.
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import json
 import pathlib
 import shutil

@@ -13,6 +13,8 @@ gradient within 1e-5 absolute; K6 within 1e-6 (float32) and 1e-5
 (bfloat16) of each window's sum of magnitudes.
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import importlib.util
 import os
 

@@ -14,6 +14,8 @@ Tolerances: losses within 1e-4 relative; parameters after a step within
 1e-5 of each tensor's largest magnitude; the buffer within 1e-4.
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

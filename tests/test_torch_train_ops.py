@@ -13,6 +13,8 @@ of the window kernel in interpret mode, as its own tests hold it; Dev within
 1e-4 relative (convolutions).
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 from collections.abc import Mapping
 
 import jax

@@ -30,6 +30,8 @@ the JAX package on the CPU, at tiny sizes:
   ``_single_level_positions(..., "xla")`` bit for bit.
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import functools
 
 import jax

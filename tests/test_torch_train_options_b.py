@@ -10,6 +10,8 @@ seeded from the classifier; and set B through the command line for one
 epoch.
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import json
 
 import numpy as np

@@ -15,6 +15,8 @@ means: the JAX step's meta loss stops the gradient of the buffer they
 feed (``train/step.py::intertwiner_meta``), as the port's does.
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import functools
 
 import jax

@@ -61,6 +61,8 @@ loadfile`` gives them another worker. Three jitted JAX train steps in all
 (set A in float32 and bfloat16, set B).
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import contextlib
 
 import flax.linen.normalization as flax_norm

@@ -13,6 +13,8 @@
   torch's).
 """
 
+import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
+
 import numpy as np
 import pytest
 import torch
