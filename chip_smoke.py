@@ -198,6 +198,24 @@ Phases, each of which must pass:
    turns with the flagship's (medians of 6), the peak memory of each, set
    D's step by kernel family and aten op; then each set on a small model
    card against CPU, to the tolerances of 8.
+21. visualize_pretrained_path: from the seeded flagship (float32) a
+   reference ``.pth`` payload (weights, buffer, counters), the converter
+   command line's npz of it and, where h5py is present, a keras ``.h5``;
+   ``python -m feature_intertwiner_tpu_torch.main --phase visualize
+   --synthetic_data`` at full width in bfloat16, started from the npz and
+   counted from 0: K1 1 and K2 at least 2 per image, ``features.npz`` with
+   the JAX phase's keys, shapes and dtypes, finite, zero on exactly the
+   padding rows; in float32 the visualize detections equal ``detect()``'s
+   on the two images, and that batch's K1 and K2 calls held against their
+   plain versions, timed beside their bounds (their ``_visualize`` entries
+   in the kernel line, launches from the command line's run); the
+   visualize forward and ``detect()`` of one image paired in bfloat16 and
+   float32; a fresh model resumed from each file on the card through
+   ``Trainer.resume`` equal to the seeded one in every tensor and in its
+   detections (the payload's buffer and counters restored); ``TEST.SAVE_IM``
+   on 2 images where matplotlib is present (what ran is logged, and which
+   of matplotlib, h5py and PIL the machine has); ``tsne_embed`` over the
+   dumped features timed.
 ``roi_single`` also runs the ``crop`` sweep on a bfloat16 map (K4 and K5
 bit-equal to their plain versions), and ``window_probe`` K6 on C = 3 and
 on a map one channel off a pair (one channel a lane).
@@ -3522,6 +3540,280 @@ def main() -> int:
             small_step_checked(small_opts + ASSIGN_SETS[name], f"ASSIGN {name} REFERENCE")
 
     phase("assign_roipool_path", assign_roipool_path)
+
+    # 21. the visualize phase and pretrained files ---------------------------------
+    def hold_visualize_kernels(roi_calls, nms_calls, launches):
+        """The K1 and K2 calls of one float32 visualize batch, each against
+        its plain version (K1 within 1e-5, K2 bit for bit) and bit-equal over
+        two launches, timed beside its plain version, its bound and (K1)
+        grid_sample over P2; their entries in the kernel line, ``launches``
+        from the command line's run."""
+        k1 = dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bytes=0, ops=0)
+        for args, kwargs in roi_calls:
+            feats, boxes, bidx, lidx, crop = args[:5]
+            got = roi_ops.roi_align_fwd(*args, **kwargs)
+            again = roi_ops.roi_align_fwd(*args, **kwargs)
+            want = roi_ops.multilevel_gather_plain(*args, **kwargs)
+            require(torch.equal(got, again), "two K1 launches differ on the visualize batch")
+            k1["err"] = max(k1["err"], float((got - want).abs().max()))
+            k1["ms"] += cuda_ms(torch, lambda: roi_ops.roi_align_fwd(*args, **kwargs), 20)
+            k1["plain"] += cuda_ms(torch, lambda: roi_ops.multilevel_gather_plain(*args, **kwargs), 5)
+            p2, grid = feats[0].permute(0, 3, 1, 2), profile_roi.box_grid(boxes, crop, feats[0].shape[0])
+            k1["lib"] += cuda_ms(torch, lambda: torch.nn.functional.grid_sample(
+                p2, grid, mode="bilinear", padding_mode="zeros", align_corners=True), 20)
+            nbytes, _, n_ops = k1_work(torch, roi_ops, feats, boxes, bidx, lidx, crop)
+            k1["bytes"], k1["ops"] = k1["bytes"] + nbytes, k1["ops"] + n_ops
+        require(k1["err"] <= 1e-5, f"K1 differs from its plain version by {k1['err']} (visualize)")
+        mism, k2_ms, k2_plain, needed = 0, 0.0, 0.0, []
+        for args, kwargs in nms_calls:
+            got = nms_ops.nms_alive(*args, **kwargs)
+            require(torch.equal(got, nms_ops.nms_alive(*args, **kwargs)),
+                    "two K2 launches differ on the visualize batch")
+            want = nms_ops.greedy_alive_sorted_plain(*args, **kwargs)
+            mism += int((got != want).sum())
+            k2_ms += cuda_ms(torch, lambda: nms_ops.nms_alive(*args, **kwargs), 20)
+            k2_plain += cuda_ms(torch, lambda: nms_ops.greedy_alive_sorted_plain(*args, **kwargs), 2)
+            needed.append((*args[:2], want, args[2], call_opts(args, kwargs)))
+        require(mism == 0, f"K2 differs from its plain version in {mism} rows (visualize)")
+        _, _, _, t_ops, t_bytes = nms_bound(nms_ops, needed)
+        k1_tb, k1_to = k1["bytes"] / H100_BYTES_PER_S * 1e3, k1["ops"] / H100_FP32_OPS_PER_S * 1e3
+        log(f"VISUALIZE kernels on one float32 batch of 2: roi_align_fwd {len(roi_calls)} call(s) "
+            f"(n={[int(a[1].shape[0]) for a, _ in roi_calls]}), err {k1['err']:.3g}, "
+            f"{k1['ms']:.4f} ms, plain {k1['plain']:.4f} ms, grid_sample {k1['lib']:.4f} ms, bound "
+            f"{max(k1_tb, k1_to):.6f} ms; nms_alive {len(nms_calls)} calls "
+            f"(shapes {[tuple(a[0].shape) for a, _ in nms_calls]}), {mism} mismatches, "
+            f"{k2_ms:.4f} ms, plain {k2_plain:.4f} ms, bound {max(t_ops, t_bytes):.6f} ms")
+        kernels.append({
+            "name": "roi_align_fwd_visualize", "route": "cuda",
+            "source": "feature_intertwiner_tpu_torch/csrc/roi_align_fwd.cu",
+            "replaces": "feature_intertwiner_tpu/ops/roi_align_window.py:64",
+            "launches": launches["roi_align_fwd"], "max_abs_err": k1["err"], "ms": k1["ms"],
+            "plain_ms": k1["plain"], "bound_ms": max(k1_tb, k1_to),
+            "bound_by": "bytes" if k1_tb >= k1_to else "operations", "library_ms": k1["lib"]})
+        kernels.append({
+            "name": "nms_alive_visualize", "route": "cuda",
+            "source": "feature_intertwiner_tpu_torch/csrc/nms.cu",
+            "replaces": "feature_intertwiner_tpu/ops/nms_pallas.py:47",
+            "launches": launches["nms_alive"], "max_abs_err": float(mism > 0), "ms": k2_ms,
+            "plain_ms": k2_plain, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None})
+
+    def resume_equal(path, model, molded, windows, folder, keep=()):
+        """A fresh flagship model (torch's default initialisation) started on
+        the card from ``path`` through ``Trainer.resume``: every tensor and
+        the forward's detections equal to ``model``'s. ``keep``: name
+        prefixes the file does not hold, copied from ``model`` first.
+        Returns the trainer and its log."""
+        from feature_intertwiner_tpu_torch.train import workflow
+
+        tcfg = build_config("meta_105_quick_1", "train", opts=list(FLAGSHIP_OVERRIDES))
+        tcfg.MODEL.INIT_FILE_CHOICE = path
+        tcfg.MISC.RESULT_FOLDER = os.path.join(folder, "resume_" + os.path.basename(path))
+        tcfg.MISC.LOG_FILE = os.path.join(tcfg.MISC.RESULT_FOLDER, "log.txt")
+        os.makedirs(tcfg.MISC.RESULT_FOLDER)
+        fresh = build_model(tcfg)
+        want = model.state_dict()
+        fresh.load_state_dict({k: v for k, v in want.items() if k.startswith(keep)}, strict=False)
+        t0 = time.perf_counter()
+        trainer = workflow.Trainer(fresh, tcfg).resume()
+        dt = time.perf_counter() - t0
+        got = fresh.state_dict()
+        bad = [k for k in want if not torch.equal(got[k], want[k])]
+        require(not bad, f"{path}: {len(bad)} tensors differ after resume, e.g. {bad[:3]}")
+        with torch.inference_mode():
+            a = fresh.forward_inference(molded, windows, with_masks=False)["detections"]
+            b = model.forward_inference(molded, windows, with_masks=False)["detections"]
+        require(torch.equal(a, b), f"{path}: the resumed model's detections differ")
+        with open(tcfg.MISC.LOG_FILE) as f:
+            text = f.read()
+        overlay = [line for line in text.splitlines() if line.startswith(("[params]", "[batch_stats]"))]
+        log(f"VISUALIZE resumed from {os.path.basename(path)} ({os.path.getsize(path) / 2 ** 20:.0f} "
+            f"MiB) in {dt:.2f} s: {len(want)} tensors equal, detections equal; " + "; ".join(overlay))
+        return trainer, text
+
+    def visualize_pretrained_path():
+        """ROADMAP A8 and A9 at flagship width: pretrained files written from
+        the seeded model (a reference ``.pth`` payload, the converter's npz,
+        a keras ``.h5`` where h5py is present); ``--phase visualize
+        --synthetic_data`` in bfloat16 started from the npz, its launches
+        counted from 0 (K1 1 and K2 at least 2 per image) and its
+        ``features.npz`` checked; in float32 the visualize detections equal
+        ``detect()``'s, and one batch's K1 and K2 calls held against their
+        plain versions (their entries in the kernel line); the visualize
+        forward and ``detect()`` of one image paired in bfloat16 and float32;
+        a fresh model resumed from each file equal to the seeded one;
+        ``TEST.SAVE_IM`` on 2 images where matplotlib is present; and the
+        time of ``tsne_embed`` over the dumped features."""
+        import contextlib
+        import importlib.util
+        import io
+        import re
+        import shutil
+        import tempfile
+
+        import numpy as np
+        from feature_intertwiner_tpu_torch import main as port_main
+        from feature_intertwiner_tpu_torch.data import synthetic
+        from feature_intertwiner_tpu_torch.evaluation import COCO
+        from feature_intertwiner_tpu_torch.inference import unmold_detections, visualize
+        from feature_intertwiner_tpu_torch.train import workflow
+        from feature_intertwiner_tpu_torch.utils import convert_weights as cw
+        from feature_intertwiner_tpu_torch.utils.tsne import joint_affinities, tsne_embed
+
+        present = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "h5py", "PIL")}
+        log("VISUALIZE importlib.util.find_spec: " + json.dumps(present))
+        folder = tempfile.mkdtemp(prefix="chip_smoke_vis_", dir=os.path.join(ROOT, "build"))
+        cwd = os.getcwd()
+        try:
+            icfg = build_config("meta_105_quick_1", "inference", opts=list(FLAGSHIP_OVERRIDES))
+            model = seeded_model(build_model, icfg, seed=0)
+            sd = model.state_dict()
+            g = torch.Generator().manual_seed(5)
+            buffer = torch.randn((1, 1024, 81), generator=g)
+            buffer_cnt = torch.randint(0, 4, (1, 1, 81), generator=g).float()
+            pth, npz = os.path.join(folder, "reference.pth"), os.path.join(folder, "converted.npz")
+            torch.save({"state_dict": {f"module.{k}": v.cpu() for k, v in sd.items()},
+                        "epoch": 2, "iter": 7, "buffer": buffer, "buffer_cnt": buffer_cnt}, pth)
+            cw.main(["--input", pth, "--format", "reference", "--arch", "resnet101",
+                     "--output", npz])
+
+            # the command line in bfloat16, started from the npz
+            os.chdir(folder)
+            cuda_build.launches.clear()
+            t0 = time.perf_counter()
+            path = port_main.main(["--phase", "visualize", "--synthetic_data", "--config_name",
+                                   "vis", *FLAGSHIP_OVERRIDES, "MODEL.INIT_FILE_CHOICE", npz])
+            wall = time.perf_counter() - t0
+            launches = {k: cuda_build.launches[k] for k in ("roi_align_fwd", "nms_alive")}
+            with np.load(path) as data:
+                dumped = {k: data[k] for k in data.files}
+            with open(os.path.join(os.path.dirname(path), "log.txt")) as f:
+                cli_log = f.read()
+            os.chdir(cwd)
+            n = dumped["detections"].shape[0]
+            valid = dumped["detections"][..., 5] > 0
+            log(f"VISUALIZE --phase visualize [bfloat16] on {n} images in {wall:.2f} s: launches "
+                f"{json.dumps(launches)} ({launches['roi_align_fwd'] / n:g} K1 and "
+                f"{launches['nms_alive'] / n:g} K2 per image); features.npz "
+                f"{ {k: (v.shape, str(v.dtype)) for k, v in dumped.items()} }, detections per "
+                f"image {valid.sum(1).tolist()}")
+            require(sorted(dumped) == ["detections", "features"] and n == 8
+                    and dumped["features"].shape == (8, 100, 1024)
+                    and dumped["detections"].shape == (8, 100, 6)
+                    and all(v.dtype == np.float32 for v in dumped.values()),
+                    "features.npz has not the JAX phase's keys, shapes and dtypes")
+            require(all(np.isfinite(v).all() for v in dumped.values()), "non-finite features.npz")
+            require(valid.any() and not dumped["features"][~valid].any()
+                    and (np.abs(dumped["features"][valid]).max(-1) > 0).all(),
+                    "no detections, or features not zero on exactly the padding rows")
+            require(launches["roi_align_fwd"] == n and launches["nms_alive"] >= 2 * n,
+                    f"launches {launches} over {n} images")
+            require("initialized from pretrained weights" in cli_log, "the run did not start "
+                    "from the npz")
+
+            # float32: visualize against detect(), and one batch's kernels
+            molded, windows = mold_inputs(images, icfg, "cuda")
+            with Recorder(roi_ops, "roi_align_fwd") as roi_rec, \
+                    Recorder(nms_ops, "nms_alive") as nms_rec:
+                vis = visualize(model, images, icfg)
+            dets = detect(model, images, icfg)
+            for i, (v, d, img) in enumerate(zip(vis, dets, images)):
+                boxes, class_ids, scores, _ = unmold_detections(
+                    v["detections"], None, img.shape, windows[i].cpu().numpy())
+                require(np.array_equal(boxes, d["rois"]) and np.array_equal(class_ids, d["class_ids"])
+                        and np.array_equal(scores, d["scores"]),
+                        f"image {i}: the visualize detections differ from detect()'s")
+                keep = v["detections"][:, 5] > 0
+                require(np.isfinite(v["features"]).all() and not v["features"][~keep].any(),
+                        f"image {i}: features non-finite or not zero on the padding rows")
+            log(f"VISUALIZE float32: the visualize detections equal detect()'s on both images "
+                f"({[len(d['scores']) for d in dets]} detections)")
+            with torch.inference_mode():
+                hold_visualize_kernels(roi_rec.calls, nms_rec.calls, launches)
+            del roi_rec, nms_rec
+
+            # the visualize forward and detect() of one image, in turns
+            one = images[:1]
+
+            def typed(fn, dtype):
+                def run():
+                    model.dtype = dtype
+                    fn(model, one, icfg)
+                return run
+
+            fns = {f"{name} {label}": typed(fn, dtype)
+                   for label, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32))
+                   for name, fn in (("visualize", visualize), ("detect()", detect))}
+            for fn in fns.values():
+                fn()
+            ms, runs = paired(fns, 3)
+            model.dtype = torch.float32
+            log("VISUALIZE ms per image (host clock, one 480x640 image molded to 1024², medians "
+                "of 6 in turns): " + "; ".join(
+                    f"{k} {v:.2f} (runs {', '.join(f'{x:.2f}' for x in runs[k])})"
+                    for k, v in ms.items()))
+
+            # pretrained files: a fresh model resumed from each
+            trainer, text = resume_equal(pth, model, molded, windows, folder)
+            require(torch.equal(trainer.state.buffer.cpu(), buffer)
+                    and torch.equal(trainer.state.buffer_cnt.cpu(), buffer_cnt)
+                    and (trainer.epoch, trainer.iter) == (2, 8),
+                    "the payload's buffer or counters were not restored")
+            del trainer
+            resume_equal(npz, model, molded, windows, folder)
+            ran = ["pth", "npz"]
+            if present["h5py"]:
+                h5 = os.path.join(folder, "keras.h5")
+                cw.write_keras_h5(h5, *cw.convert_reference_state_dict(
+                    {k: v.cpu().numpy() for k, v in sd.items()}, "resnet101", strict=True),
+                    arch="resnet101")
+                # the keras file holds no Dev: its layers start as the seeded model's
+                _, text = resume_equal(h5, model, molded, windows, folder, keep=("dev_roi.",))
+                scratch = re.search(r"\[params\] loaded \d+, from-scratch (\d+)", text)
+                require(scratch and int(scratch.group(1)) > 0,
+                        "the keras file should leave the Dev from scratch")
+                ran.append("h5")
+            else:
+                log("VISUALIZE h5py is missing: the .h5 start was not run (it raises ImportError)")
+            if present["matplotlib"]:
+                data = synthetic.generate(num_images=2)
+                ecfg = build_config("meta_105_quick_1", "inference", opts=list(FLAGSHIP_OVERRIDES))
+                ecfg.DATASET.NUM_CLASSES = data.num_classes
+                ecfg.TEST.SAVE_IM = True
+                ecfg.MISC.RESULT_FOLDER = os.path.join(folder, "save_im")
+                ecfg.MISC.LOG_FILE = os.path.join(ecfg.MISC.RESULT_FOLDER, "log.txt")
+                small = seeded_model(build_model, ecfg, seed=0)
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):     # COCOeval's tables
+                    workflow.test_model(small, ecfg, data, COCO(dataset=data.coco_dataset()))
+                pngs = sorted(os.listdir(os.path.join(ecfg.MISC.RESULT_FOLDER, "images")))
+                log(f"VISUALIZE TEST.SAVE_IM on 2 images: {pngs} in {time.perf_counter() - t0:.2f} s")
+                require(pngs == [f"det_{i['id']}.png" for i in data.image_info],
+                        f"TEST.SAVE_IM wrote {pngs}")
+                del small
+                ran.append("TEST.SAVE_IM")
+            else:
+                log("VISUALIZE matplotlib is missing: TEST.SAVE_IM was not run (it raises "
+                    "ImportError)")
+            log(f"VISUALIZE ran: {', '.join(ran)}")
+
+            # t-SNE over the dumped features of the 8 images
+            feats = dumped["features"][valid]
+            tsne_embed(feats[:64], n_iter=2)                        # warm-up
+            t0 = time.perf_counter()
+            joint_affinities(feats, 30.0)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            emb = tsne_embed(feats)
+            total_ms = (time.perf_counter() - t0) * 1e3
+            require(emb.shape == (len(feats), 2) and np.isfinite(emb).all(), "t-SNE output")
+            log(f"VISUALIZE tsne_embed of {len(feats)} rows x 1024 (150 iterations, perplexity "
+                f"30): {total_ms:.1f} ms, of which the host affinities {host_ms:.1f} ms")
+        finally:
+            os.chdir(cwd)
+            shutil.rmtree(folder, ignore_errors=True)
+
+    phase("visualize_pretrained_path", visualize_pretrained_path)
 
     if failures:
         log("FAILED phases: " + ", ".join(failures))

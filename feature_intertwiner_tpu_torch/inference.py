@@ -1,7 +1,7 @@
 """Entry points: build the model, and detect objects in images.
 
-``build_model(cfg)`` and ``detect(model, images, cfg)`` are what a user
-calls. They run on the card (``"cuda"``) unless the caller asks for
+``build_model(cfg)``, ``detect(model, images, cfg)`` and
+``visualize(model, images, cfg)`` are what a user calls. They run on the card (``"cuda"``) unless the caller asks for
 ``device="cpu"``, and raise when no card is present.
 
 The host steps around the model are ports of the JAX package's
@@ -150,3 +150,19 @@ def detect(model: InterNet, images: Sequence[np.ndarray], cfg,
         results.append({"rois": boxes, "class_ids": class_ids,
                         "scores": scores, "masks": full})
     return results
+
+
+def visualize(model: InterNet, images: Sequence[np.ndarray], cfg) -> List[Dict[str, np.ndarray]]:
+    """Images (H×W×3 arrays) in, per image the visualize forward's output
+    (``InterNet.forward_visualize``) as the model gives it: ``detections``
+    [M, 6] (y1, x1, y2, x2, class, score) in the molded image's pixels,
+    zero-padded, and ``features`` [M, 1024] float32, each detection's
+    penultimate classifier feature (zero on the padding rows), as the JAX
+    ``--phase visualize`` dumps them."""
+    device = next(model.parameters()).device
+    molded, windows = mold_inputs(images, cfg, device)
+    with torch.inference_mode():
+        out = model.forward_visualize(molded, windows)
+        dets = out["detections"].cpu().numpy()
+        feats = out["features"].cpu().numpy()
+    return [{"detections": dets[i], "features": feats[i]} for i in range(len(images))]

@@ -1,10 +1,12 @@
 """InterNet: the two-stage detector with the Feature Intertwiner.
 
 Port of ``feature_intertwiner_tpu/models/detector.py``
-(``InterNet.from_config``, ``forward_inference`` and ``forward_train``):
-ResNet-FPN backbone, RPN, proposal layer, Dev, classifier, detection layer,
-then the mask pass on the detections; in training, the RPN and second-stage
-targets and the five losses in place of the detection layer.
+(``InterNet.from_config``, ``forward_inference`` with its visualize mode,
+and ``forward_train``): ResNet-FPN backbone, RPN, proposal layer, Dev,
+classifier, detection layer, then the mask pass on the detections (in
+visualize mode each detection's classifier feature instead); in training,
+the RPN and second-stage targets and the five losses in place of the
+detection layer.
 
 Training follows the JAX package's ``strict_quirks`` (SURVEY §3.5 #1): it
 proposes ``POST_NMS_ROIS_INFERENCE`` boxes (``POST_NMS_ROIS_TRAINING`` with
@@ -260,11 +262,15 @@ class InterNet(nn.Module):
 
     def second_stage(self, feats: List[torch.Tensor], proposals: torch.Tensor,
                      windows: torch.Tensor, with_masks: bool = True,
-                     image_size: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                     image_size: Optional[int] = None,
+                     with_features: bool = False) -> Dict[str, torch.Tensor]:
         """P2..P5 (NCHW) and proposals -> {detections [B, M, 6],
         masks [B, M, 28, 28]} (masks: each detection's own class). With
         ``CLS_MERGE_FEAT`` every proposal is also pooled 14² for the critic,
-        whose vectors join the classifier."""
+        whose vectors join the classifier. ``with_features`` (the JAX
+        ``mode="visualize"``) returns {detections, features [B, M, 1024]}
+        in place of the masks: each detection's 1024-d penultimate
+        classifier feature in float32, zero on the padding rows."""
         b, r, _ = proposals.shape
         size = image_size or self.image_size
         dev = self.dev_roi
@@ -276,14 +282,19 @@ class InterNet(nn.Module):
         if self.classifier.merge_feat and not dev.baseline:
             small = dev.small_features(
                 dev.pool(maps, proposals, self.mask_pool_size, size, lvl), proposals, size, lvl)
-        _, probs, bbox, _ = self.classifier(pooled, *small)
-        detections, _, _ = detection_layer(
+        _, probs, bbox, cls_feat = self.classifier(pooled, *small)
+        detections, keep_idx, keep_valid = detection_layer(
             proposals, probs.reshape(b, r, self.num_classes),
             bbox.reshape(b, r, self.num_classes, 4), windows.float(),
             self.bbox_std, (size, size),
             max_instances=self.det_max_instances,
             nms_threshold=self.det_nms_threshold,
             min_confidence=self.det_min_confidence)
+        if with_features:
+            feat = cls_feat.reshape(b, r, -1)
+            feat = torch.gather(feat, 1, keep_idx[..., None].expand(-1, -1, feat.shape[-1]))
+            return {"detections": detections,
+                    "features": feat * keep_valid[..., None].to(feat.dtype)}
         if not with_masks:
             return {"detections": detections}
 
@@ -307,6 +318,17 @@ class InterNet(nn.Module):
         size's anchors, clipping and RoI levels, the same parameters."""
         pyramid, _, _, proposals = self.first_stage(images, image_size)
         return self.second_stage(pyramid[:4], proposals, windows, with_masks, image_size)
+
+    def forward_visualize(self, images: torch.Tensor, windows: torch.Tensor,
+                          image_size: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """The JAX ``mode="visualize"``: the inference forward without the
+        mask pass, returning {detections [B, M, 6], features [B, M, 1024]
+        float32} (:meth:`second_stage` with ``with_features``). The JAX
+        package also runs the critic here when ``CLS_MERGE_FEAT`` is off,
+        and its classifier discards the result; the port skips it."""
+        pyramid, _, _, proposals = self.first_stage(images, image_size)
+        return self.second_stage(pyramid[:4], proposals, windows, False, image_size,
+                                 with_features=True)
 
     forward = forward_inference
 

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..utils.convert_weights import flax_module_path
+from ..utils.convert_weights import flax_leaves
 
 # Stage-wise trainable-parameter regexes over flax parameter paths, a copy
 # of the JAX package's config.LAYER_REGEX.
@@ -57,17 +57,7 @@ def flax_paths(model: nn.Module) -> Dict[str, str]:
     """Port parameter name -> the JAX package's flax parameter path
     (``fpn.C1.1.weight`` -> ``backbone/c1_bn/BatchNorm_0/scale``,
     ``dev_roi.upsample.0.gate`` -> ``dev/upsample0/gate``)."""
-    out = {}
-    for mod_name, mod in model.named_modules():
-        bn = isinstance(mod, nn.BatchNorm2d)
-        transposed = isinstance(mod, nn.ConvTranspose2d)
-        for leaf, _ in mod.named_parameters(recurse=False):
-            if bn:
-                flax_leaf = {"weight": "BatchNorm_0/scale", "bias": "BatchNorm_0/bias"}[leaf]
-            else:
-                flax_leaf = {"weight": "kernel", "bias": "bias", "gate": "gate"}[leaf]
-            out[f"{mod_name}.{leaf}"] = f"{flax_module_path(mod_name, transposed)}/{flax_leaf}"
-    return out
+    return {name: path for name, (tree, path) in flax_leaves(model).items() if tree == "params"}
 
 
 def trainable_names(model: nn.Module, layers: str) -> Set[str]:

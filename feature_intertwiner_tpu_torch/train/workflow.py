@@ -6,7 +6,8 @@ Port of ``feature_intertwiner_tpu/train/workflow.py``:
 - :class:`Trainer` holds the model, the :class:`TrainState` and the
   epoch/iteration counters; :meth:`Trainer.resume` seeds ``big_fc`` from
   the classifier under ``DEV.BIG_FC_INIT coco_pretrain``, then restarts
-  from the newest checkpoint;
+  from the newest checkpoint, or starts from a pretrained ``.npz``,
+  ``.pth`` or ``.h5`` file;
 - :func:`train_model` runs one stage ('heads', '4+', 'all') over the epochs
   the cumulative ``TRAIN.SCHEDULE`` gives it, skipping a stage a resumed run
   has finished;
@@ -22,8 +23,9 @@ Port of ``feature_intertwiner_tpu/train/workflow.py``:
   every ``TEST.MULTI_SCALE`` scale fused per image by :func:`fuse_multiscale`),
   COCO-format results with RLE masks, the det-result cache (inference is
   skipped when the cache of the same epoch, image count, mask mode, dtype
-  and scales exists), the bbox (and with masks the segm) COCOeval, and the
-  AP line in ``metrics.jsonl``. The JAX package's ``roi_unfit_overflow``
+  and scales exists), the bbox (and with masks the segm) COCOeval, the
+  AP line in ``metrics.jsonl`` and, with ``TEST.SAVE_IM``, each image's
+  detections drawn to a PNG. The JAX package's ``roi_unfit_overflow``
   counter belongs to its TPU window kernel and has no counterpart here.
 """
 
@@ -41,8 +43,9 @@ import torch
 from ..evaluation import COCOeval
 from ..evaluation.rle import RLE
 from ..inference import detect
-from ..utils.convert_weights import apply_cross_name_init
+from ..utils import convert_weights as cw
 from ..utils.logging import MetricsLogger, format_loss_line, print_log
+from ..utils.visualize import display_instances, require_matplotlib
 from . import checkpoint as ckpt
 from .optim import flax_paths, learning_rate, set_trainable
 from .step import create_train_state, train_step
@@ -76,27 +79,79 @@ class Trainer:
     def resume(self) -> "Trainer":
         """Apply ``DEV.BIG_FC_INIT_LIST`` (``coco_pretrain``: ``big_fc``
         from the classifier's ``linear_class``, JAX ``Trainer.resume``),
-        then restart from the newest checkpoint of the run, if there is
-        one."""
+        then start from what ``train/checkpoint.py::resolve_init`` names:
+        a checkpoint of the run restores the whole trainer state; a
+        pretrained file is overlaid on the weights
+        (``utils/convert_weights.py::merge_pretrained``, a strict=False load
+        that logs what it loaded, left from scratch, found mismatched and
+        left unused), as the JAX ``Trainer.resume`` reads it:
+
+        - ``.npz``, either package's converter output;
+        - ``.pth`` / ``.pt``, a reference checkpoint. A ``save_model``
+          payload also restores the intertwiner buffer and ``buffer_cnt``
+          where both shapes match the state's; where they do not,
+          ``TRAIN.STRICT_RESUME`` raises ``ValueError`` and otherwise the
+          buffer stays as initialised and a line says so. Its epoch and
+          iteration counters are restored;
+        - ``.h5`` / ``.hdf5``, Matterport keras weights (needs ``h5py``).
+
+        Any other suffix raises ``ValueError``. ``TRAIN.FORCE_START_EPOCH``
+        then applies whatever the source."""
+        log = lambda m: print_log(m, self.cfg.MISC.LOG_FILE)  # noqa: E731
         if self.cfg.DEV.SWITCH and self.cfg.DEV.BIG_FC_INIT_LIST:
-            apply_cross_name_init(self.model, self.cfg.DEV.BIG_FC_INIT_LIST,
-                                  flax_paths(self.model),
-                                  log_fn=lambda m: print_log(m, self.cfg.MISC.LOG_FILE))
+            cw.apply_cross_name_init(self.model, self.cfg.DEV.BIG_FC_INIT_LIST,
+                                     flax_paths(self.model), log_fn=log)
         path = ckpt.resolve_init(self.cfg, self.cfg.MISC.RESULT_FOLDER)
         if path and ckpt.CKPT_RE.search(os.path.basename(path)):
             self.state, epoch, it = ckpt.restore_checkpoint(path, self.state)
             self.epoch, self.iter = epoch, it + 1
-            print_log(f"resumed from {path} (ep {epoch}, iter {it})", self.cfg.MISC.LOG_FILE)
+            log(f"resumed from {path} (ep {epoch}, iter {it})")
         elif path:
-            raise NotImplementedError(
-                f"initialising from pretrained weights ({path}) is not ported: "
-                "the repository holds no pretrained .pth, .npz or .h5 files")
+            cw.merge_pretrained(self.model, self._read_pretrained(path), log_fn=log)
+            log(f"initialized from pretrained weights: {path}")
         if self.cfg.TRAIN.FORCE_START_EPOCH:
             self.epoch = self.cfg.TRAIN.FORCE_START_EPOCH
             self.iter = 1
-            print_log(f"FORCE_START_EPOCH={self.epoch}: schedule restarted there",
-                      self.cfg.MISC.LOG_FILE)
+            log(f"FORCE_START_EPOCH={self.epoch}: schedule restarted there")
         return self
+
+    def _read_pretrained(self, path: str):
+        """(params, batch_stats) by flax leaf path from a pretrained file;
+        a reference payload's buffer and counters go into the trainer."""
+        cfg = self.cfg
+        log = lambda m: print_log(m, cfg.MISC.LOG_FILE)  # noqa: E731
+        if path.endswith(".npz"):
+            return cw.load_converted_npz(path)
+        if path.endswith((".h5", ".hdf5")):
+            return cw.convert_keras_h5(path, cfg.MODEL.BACKBONE)
+        if not path.endswith((".pth", ".pt")):
+            raise ValueError(f"unrecognized pretrained weight format: {path!r} "
+                             "(expected .npz from the converter CLI, .pth, or .h5)")
+        sd, extras = cw.load_reference_checkpoint(path)
+        loaded = cw.convert_reference_state_dict(sd, arch=cfg.MODEL.BACKBONE,
+                                                 upsample_fac=cfg.DEV.UPSAMPLE_FAC, log_fn=log)
+        buf, cnt = extras.get("buffer"), extras.get("buffer_cnt")
+        state = self.state
+        if (buf is not None and np.size(buf) and np.shape(buf) == tuple(state.buffer.shape)
+                and cnt is not None and np.shape(cnt) == tuple(state.buffer_cnt.shape)):
+            state.buffer = torch.as_tensor(np.asarray(buf, np.float32), device=self.device)
+            state.buffer_cnt = torch.as_tensor(np.asarray(cnt, np.float32), device=self.device)
+            log(f"restored intertwiner buffer {np.shape(buf)}")
+        elif buf is not None and np.size(buf):
+            msg = (f"payload buffer not restored: buffer {np.shape(buf)} vs "
+                   f"{tuple(state.buffer.shape)}, buffer_cnt "
+                   f"{np.shape(cnt) if cnt is not None else None} vs "
+                   f"{tuple(state.buffer_cnt.shape)}")
+            if cfg.TRAIN.STRICT_RESUME:
+                raise ValueError(msg + " — TRAIN.STRICT_RESUME forbids silently reinitializing "
+                                 "the intertwiner buffer (set it False to accept the "
+                                 "reference's fallback, tools/utils.py:374-389)")
+            log(msg + "; reinitialized")
+        if extras.get("epoch") is not None:
+            self.epoch = int(extras["epoch"])
+            self.iter = int(extras.get("iter", 0)) + 1
+            log(f"resumed counters from payload (ep {self.epoch}, iter {self.iter - 1})")
+        return loaded
 
 
 def train_model(trainer: Trainer, loader, layers: str, val_api=None, val_dataset=None) -> None:
@@ -297,9 +352,14 @@ def test_model(model, cfg, val_dataset, coco_api, epoch: int = 0, limit: Optiona
     each image's COCO ``id``) and ``get_source_class_id``. Detections are
     cached in the run's folder and read back when the cache exists. The
     model evaluates in its own dtype (``InterNet.dtype``), as the JAX
-    ``test_model`` does; ``main.py`` re-types it for ``TEST.DTYPE``."""
+    ``test_model`` does; ``main.py`` re-types it for ``TEST.DTYPE``.
+
+    ``TEST.SAVE_IM`` draws each evaluated image's detections (full-size
+    boxes, class names, scores) to ``<folder>/images/det_<coco id>.png``
+    (``utils/visualize.py::display_instances``); it needs ``matplotlib``
+    and raises ``ImportError`` before any inference without it."""
     if cfg.TEST.SAVE_IM:
-        raise NotImplementedError("TEST.SAVE_IM: the visualize module is not ported")
+        require_matplotlib("TEST.SAVE_IM")
     folder = cfg.MISC.RESULT_FOLDER or "."
     os.makedirs(folder, exist_ok=True)
     log_file = cfg.MISC.LOG_FILE
@@ -321,8 +381,12 @@ def test_model(model, cfg, val_dataset, coco_api, epoch: int = 0, limit: Optiona
         else:
             stream = _detect_images(model, cfg, val_dataset, image_ids, eval_masks)
         results = []
-        for idx, _, boxes, class_ids, scores, full_masks in stream:
+        for idx, image, boxes, class_ids, scores, full_masks in stream:
             coco_id = int(val_dataset.image_info[int(idx)]["id"])
+            if cfg.TEST.SAVE_IM:
+                display_instances(image, boxes, class_ids,
+                                  getattr(val_dataset, "class_names", None), scores=scores,
+                                  save_path=os.path.join(folder, "images", f"det_{coco_id}.png"))
             for j in range(len(class_ids)):
                 y1, x1, y2, x2 = boxes[j]
                 result = {

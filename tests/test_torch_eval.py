@@ -370,12 +370,15 @@ def test_test_model_multiscale_and_unported_options(evaluated):
     finally:
         cfg.TEST.DTYPE, model.dtype = "", torch.float32
         hook.remove()
+    # TEST.SAVE_IM draws each evaluated image's detections to a PNG
     cfg.TEST.SAVE_IM = True
     try:
-        with pytest.raises(NotImplementedError):
-            workflow.test_model(model, cfg, data, api, epoch=5)
+        stats = workflow.test_model(model, cfg, data, api, epoch=5, limit=2)
     finally:
         cfg.TEST.SAVE_IM = False
+    assert stats.shape == (12,)
+    images = os.path.join(evaluated["port"]["folder"], "images")
+    assert sorted(os.listdir(images)) == [f"det_{data.image_info[i]['id']}.png" for i in (0, 1)]
 
 
 # --- the command line ---------------------------------------------------------------------

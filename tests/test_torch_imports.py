@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, no flax, no OpenCV, no PIL, nothing of
-the JAX package; PyYAML only inside the function that reads YAML; and its
-entry points run on the GPU unless the caller asks for the CPU."""
+the JAX package; PyYAML, matplotlib and h5py only inside the functions
+that need them (the card's machine may lack them); and its entry points run
+on the GPU unless the caller asks for the CPU."""
 
 import test_torch_workers  # noqa: F401  (first: sizes this xdist worker's thread pools)
 
@@ -44,7 +45,8 @@ images = [np.random.RandomState(0).randint(0, 256, (40, 60, 3)).astype(np.uint8)
 out = port.detect(model, images, cfg)
 assert len(out) == 1 and set(out[0]) == {"rois", "class_ids", "scores", "masks"}
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "PIL", "yaml")
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "PIL", "yaml", "matplotlib",
+                                    "h5py")
              or m == "feature_intertwiner_tpu" or m.startswith("feature_intertwiner_tpu."))
 print("LOADED", bad)
 sys.exit(1 if bad else 0)
@@ -77,8 +79,8 @@ def test_sources_import_nothing_forbidden(path):
     for name, top_level in _imports(path):
         root = name.split(".")[0]
         assert root not in FORBIDDEN, f"{path} imports {name}"
-        if root == "yaml":
-            assert not top_level, f"{path} imports yaml at module level"
+        if root in ("yaml", "matplotlib", "h5py"):
+            assert not top_level, f"{path} imports {root} at module level"
 
 
 def test_entry_points_default_to_the_gpu(monkeypatch):
@@ -98,3 +100,6 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
     for sweep in (profile_roi.crop, profile_roi.stage, profile_roi.window):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             sweep(batch=1, boxes=1, size=32)
+    from feature_intertwiner_tpu_torch.utils.tsne import tsne_embed
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsne_embed(np.random.RandomState(0).randn(4, 3))
