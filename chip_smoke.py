@@ -216,6 +216,19 @@ Phases, each of which must pass:
    on 2 images where matplotlib is present (what ran is logged, and which
    of matplotlib, h5py and PIL the machine has); ``tsne_embed`` over the
    dumped features timed.
+22. coco_disk_path: the synthetic set written to disk in the COCO layout
+   by the port's writer (8 1024² images, minival and a train split of the
+   same images); one epoch of the train loader in process and on two
+   thread and two process workers, bit-equal; ``python -m
+   feature_intertwiner_tpu_torch.main --phase train --data_root`` in
+   bfloat16, one 'all' stage of 2 steps at batch 4 on two process workers
+   under ``CTRL.PROFILE_ANALYSIS``, started from a ``.pth`` of the tempered
+   seeded model (4 classes) and counted from 0: per step K1 2, K4 3, K3 2,
+   K2 at least 1, finite losses, the ``[profile]`` fetch and step totals
+   logged; ``--phase inference --data_root`` from its checkpoint over the 8
+   minival images: K1 1 and K2 at least 2, detections and 12 finite bbox
+   stats; then the ``LOADER`` line: ms per 1024² batch of 4 over a
+   16-image set in process and on 2 and 4 workers of each mode.
 ``roi_single`` also runs the ``crop`` sweep on a bfloat16 map (K4 and K5
 bit-equal to their plain versions), and ``window_probe`` K6 on C = 3 and
 on a map one channel off a pair (one channel a lane).
@@ -3814,6 +3827,177 @@ def main() -> int:
             shutil.rmtree(folder, ignore_errors=True)
 
     phase("visualize_pretrained_path", visualize_pretrained_path)
+
+    def timed_epoch(loader):
+        """One epoch of ``loader``: (its batches, ms to the first batch, ms
+        in all; host clock, the consumer doing nothing)."""
+        loader.set_epoch(1)
+        t0 = time.perf_counter()
+        out, first = [], None
+        for batch in loader:
+            out.append(batch)
+            first = first or (time.perf_counter() - t0) * 1e3
+        return out, first, (time.perf_counter() - t0) * 1e3
+
+    def coco_disk_path():
+        """ROADMAP A10's reader, loader workers and phase timer at flagship
+        width: the synthetic set written to disk in the COCO layout by the
+        port's writer (8 1024² images, minival and a train split of the same
+        images); the in-process ``Loader`` and the thread and process
+        loaders' batches bit-equal; ``python -m ... main --phase train
+        --data_root`` in bfloat16, one 'all' stage of 2 steps at batch 4 on
+        two process workers under ``CTRL.PROFILE_ANALYSIS``, started from a
+        ``.pth`` of the tempered seeded model and counted from 0 (per step K1
+        2, K4 3, K3 2, K2 at least 1); its losses finite, its ``[profile]``
+        fetch and step totals logged; ``--phase inference --data_root`` from
+        its checkpoint over the 8 minival images (K1 1 and K2 at least 2 per
+        batch of 8, detections, 12 finite stats); then the loaders' ms per
+        1024² batch of 4 over a 16-image set: in process, and 2 and 4
+        workers of each mode."""
+        import contextlib
+        import glob
+        import io
+        import shutil
+        import tempfile
+
+        import numpy as np
+        from feature_intertwiner_tpu_torch import main as port_main
+        from feature_intertwiner_tpu_torch.data import synthetic
+        from feature_intertwiner_tpu_torch.data.coco_dataset import get_data
+        from feature_intertwiner_tpu_torch.data.loader import Loader, PrefetchLoader
+
+        folder = tempfile.mkdtemp(prefix="chip_smoke_coco_", dir=os.path.join(ROOT, "build"))
+        cwd = os.getcwd()
+        try:
+            def write(name, n, seed):
+                """A COCO root: minival, and a train split of the same images."""
+                root = os.path.join(folder, name)
+                ann = synthetic.write_coco(root, num_images=n, seed=seed,
+                                           size=TRAIN_DATA["size"],
+                                           max_instances=TRAIN_DATA["max_instances"])
+                shutil.copytree(os.path.join(root, "val2014"), os.path.join(root, "train2014"))
+                shutil.copy(ann, os.path.join(root, "annotations", "instances_train2014.json"))
+                return root
+
+            t0 = time.perf_counter()
+            root = write("coco", 8, TRAIN_DATA["seed"])
+            log(f"COCO wrote 8 1024² images with their COCO annotations in "
+                f"{time.perf_counter() - t0:.2f} s")
+            flag = list(FLAGSHIP_OVERRIDES)
+            dcfg = build_config("meta_105_quick_1", "train", opts=flag)
+
+            # the loaders on one epoch of the train split: bit-equal batches
+            loader, val, _ = get_data(dcfg, data_root=root)
+            ds = loader.dataset
+            ref, _, _ = timed_epoch(Loader(ds, dcfg.TRAIN.BATCH_SIZE, seed=dcfg.MISC.SEED))
+            for mode in ("thread", "process"):
+                got, _, _ = timed_epoch(PrefetchLoader(
+                    ds, dcfg.TRAIN.BATCH_SIZE, num_workers=2, seed=dcfg.MISC.SEED,
+                    worker_mode=mode, stall_timeout=120))
+                require(len(got) == len(ref) == 2 and all(
+                    g.keys() == r.keys() and all(np.array_equal(g[k], r[k]) for k in g)
+                    for g, r in zip(got, ref)), f"the {mode} loader's batches differ from Loader's")
+            log(f"COCO loader batches bit-equal to the in-process Loader's over one epoch "
+                f"({len(ref)} batches of {dcfg.TRAIN.BATCH_SIZE}): thread x2, process x2; "
+                f"{val.num_classes - 1} categories, instances per image "
+                f"{[int(n) for r in ref for n in (r['gt_class_ids'] > 0).sum(1)]}")
+
+            # the flagship's tempered seeded model as a reference .pth
+            tcfg = build_config("meta_105_quick_1", "train", opts=flag + [
+                "DATASET.NUM_CLASSES", str(val.num_classes)])
+            model = temper_fpn(seeded_model(build_model, tcfg, seed=0))
+            pth = os.path.join(folder, "tempered.pth")
+            torch.save({"state_dict": {f"module.{k}": v.cpu()
+                                       for k, v in model.state_dict().items()}}, pth)
+            del model
+            torch.cuda.empty_cache()
+
+            os.chdir(folder)
+            base = ["--data_root", root, "--config_name", "coco_disk", *flag]
+            cuda_build.launches.clear()
+            t0 = time.perf_counter()
+            trainer = port_main.main([
+                "--phase", "train", *base, "TRAIN.DO_VALIDATION", "False",
+                "TRAIN.SCHEDULE", "[0, 0, 1]", "TRAIN.KEEP_CHECKPOINTS", "1",
+                "CTRL.SHOW_INTERVAL", "1", "CTRL.PROFILE_ANALYSIS", "True",
+                "DATA.LOADER_WORKER_MODE", "process", "DATA.LOADER_WORKER_NUM", "2",
+                "MODEL.INIT_FILE_CHOICE", pth])
+            train_s = time.perf_counter() - t0
+            launches = {k: cuda_build.launches[k] for k in TRAIN_KERNELS}
+            steps = trainer.state.step
+            train_dir = os.path.join(folder, "results", "coco_disk", "train")
+            with open(os.path.join(train_dir, "log.txt")) as f:
+                train_log = f.read().splitlines()
+            with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+                lines = [json.loads(x) for x in f]
+            losses = [r for r in lines if "total_loss" in r]
+            profile = [x for x in train_log if x.startswith("[profile] ")]
+            log(f"COCO --phase train from disk [bfloat16, 'all' stage, process workers x2] in "
+                f"{train_s:.2f} s: {steps} steps, launches {json.dumps(launches)}")
+            for r in losses:
+                log(f"COCO train iter {r['iter']:.0f}: " + " ".join(
+                    f"{k.replace('_loss', '')} {r[k]:.4f}" for k in (
+                        "total_loss", "rpn_class_loss", "rpn_bbox_loss", "mrcnn_class_loss",
+                        "mrcnn_bbox_loss", "mrcnn_mask_loss", "meta_loss")))
+            log(f"COCO PROFILE ({smi}): " + "; ".join(profile[-2:]))
+            require("initialized from pretrained weights" in "\n".join(train_log),
+                    "the run did not start from the .pth")
+            require(steps == 2 and step_launches_ok(launches, steps),
+                    f"{steps} steps, launches {launches}")
+            require(len(losses) == 2 and all(math.isfinite(r[k]) for r in losses for k in r
+                                             if k.endswith("_loss")), "non-finite losses")
+            require(any(x.startswith("[profile] fetch: ") and " over 2 calls " in x
+                        for x in profile)
+                    and any(x.startswith("[profile] step: ") and " over 2 calls " in x
+                            for x in profile), f"no [profile] totals of 2 steps: {profile}")
+            require(os.path.exists(os.path.join(train_dir, "dashboard.html")), "no dashboard")
+            del trainer
+            torch.cuda.empty_cache()
+
+            cuda_build.launches.clear()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                stats = port_main.main(["--phase", "inference", *base])
+            eval_s = time.perf_counter() - t0
+            launches = {k: cuda_build.launches[k] for k in ("roi_align_fwd", "nms_alive")}
+            cache = glob.glob(os.path.join(folder, "results", "coco_disk", "inference",
+                                           "det_result_ep*_n8.json"))
+            with open(cache[0]) as f:
+                n_det = len(json.load(f))
+            log(f"COCO --phase inference from disk [bfloat16] over 8 images in {eval_s:.2f} s: "
+                f"launches {json.dumps(launches)}, {n_det} detections, bbox "
+                + " ".join(f"{v:.3f}" for v in stats))
+            require(len(stats) == 12 and np.isfinite(stats).all() and n_det > 0
+                    and out.getvalue().count("Average Precision") == 6,
+                    "no detections or not 12 finite stats")
+            require(launches["roi_align_fwd"] == 1 and launches["nms_alive"] >= 2,
+                    f"inference launches {launches} for one batch of 8")
+            os.chdir(cwd)
+
+            # loader time per 1024² batch of 4 over a 16-image set
+            lroot = write("coco16", 16, 1)
+            lds = get_data(dcfg, data_root=lroot)[0].dataset
+            bs = dcfg.TRAIN.BATCH_SIZE
+            rows = {"Loader": Loader(lds, bs, seed=dcfg.MISC.SEED)}
+            for mode in ("thread", "process"):
+                for nw in (2, 4):
+                    rows[f"{mode} x{nw}"] = PrefetchLoader(lds, bs, num_workers=nw,
+                                                           seed=dcfg.MISC.SEED, worker_mode=mode,
+                                                           stall_timeout=120)
+            ms = {}
+            for name, ldr in rows.items():
+                batches, first, total = timed_epoch(ldr)
+                require(len(batches) == 4, f"{name}: {len(batches)} batches")
+                ms[name] = (total / 4, first, (total - first) / 3)
+            log(f"LOADER ms per 1024² batch of 4 (16 images, one epoch of 4 batches, host "
+                f"clock, {os.cpu_count()} host cores; {smi}): " + "; ".join(
+                    f"{k} {v[0]:.1f} (first batch {v[1]:.1f}, then {v[2]:.1f} per batch)"
+                    for k, v in ms.items()))
+        finally:
+            os.chdir(cwd)
+            shutil.rmtree(folder, ignore_errors=True)
+
+    phase("coco_disk_path", coco_disk_path)
 
     if failures:
         log("FAILED phases: " + ", ".join(failures))

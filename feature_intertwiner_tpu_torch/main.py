@@ -1,8 +1,8 @@
 """Command line of the port, with the flags of the JAX package's ``main.py``::
 
     python -m feature_intertwiner_tpu_torch.main --phase {train,inference,visualize} \
-        --synthetic_data [--config_name NAME] [--config_file cfg.yaml] [--debug 0|1] \
-        [--device cuda|cpu] [KEY.SUBKEY VALUE ...]
+        [--data_root PATH] [--synthetic_data] [--config_name NAME] [--config_file cfg.yaml] \
+        [--debug 0|1] [--device cuda|cpu] [KEY.SUBKEY VALUE ...]
 
 ``--phase train`` runs the three-stage schedule (heads, 4+, all; only 'all'
 with ``TRAIN.END2END``) with resume from the run's newest checkpoint, and
@@ -25,11 +25,26 @@ JAX ``main.py`` builds it; ``--phase inference`` and ``visualize`` re-type
 it to ``TEST.DTYPE`` where that is set and differs. TF32 is off for the
 float32 convolutions and matmuls.
 
-``--synthetic_data`` builds the JAX package's synthetic set (8 images) in
-memory, with its COCO ground truth. Every model option of the config
-builds (``DEV.STRUCTURE`` other than beta raises in both packages); COCO
-data on disk (``--data_root``) is not ported yet and raises
-``NotImplementedError``.
+Data. ``--data_root`` (default ``DATASET.PATH``) names a COCO layout on
+disk: ``annotations/instances_minival<year>.json`` with ``val<year>/`` for
+the evaluation, ``instances_train<year>.json`` with ``train<year>/`` (and
+``instances_valminusminival<year>.json`` where it exists) for training, or
+minival under ``CTRL.QUICK_VERIFY`` (``data/coco_dataset.py::get_data``). A
+missing annotation file raises ``FileNotFoundError`` naming it; reading
+images needs PIL. The train loader prefetches on ``DATA.LOADER_WORKER_NUM``
+workers, threads or spawned processes by ``DATA.LOADER_WORKER_MODE``
+(``data/loader.py::PrefetchLoader``). ``--synthetic_data --data_root DIR``
+first writes the JAX package's synthetic set (8 images) there in the COCO
+layout and trains on it under ``CTRL.QUICK_VERIFY``, as the JAX ``main.py``
+does; ``--synthetic_data`` alone builds the same set in memory, with its
+COCO ground truth, where the JAX ``main.py`` writes it to ``DATASET.PATH``.
+Every model option of the config builds (``DEV.STRUCTURE`` other than beta
+raises in both packages).
+
+Monitoring. The trainer writes ``dashboard.html`` beside ``metrics.jsonl``
+and serves the run folder on ``MISC.VIS.PORT`` (8097 where it is not set)
+under ``MISC.USE_VISDOM``; ``CTRL.PROFILE_ANALYSIS`` reports the loader's
+fetch time and the step time as ``[profile]`` lines with each loss line.
 """
 
 from __future__ import annotations
@@ -43,7 +58,7 @@ import torch
 
 from .config import build_config
 from .data import synthetic
-from .data.loader import DetectionDataset, Loader
+from .data.coco_dataset import get_data, make_loader
 from .evaluation import COCO
 from .inference import COMPUTE_DTYPES, build_model, visualize
 from .train.workflow import Trainer, test_model, train_model
@@ -59,10 +74,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--device_id", default="0", help="kept for parity with main.py")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     p.add_argument("--data_root", default=None,
-                   help="COCO data on disk (the COCO reader is not ported yet; "
-                        "pass --synthetic_data)")
+                   help="a COCO layout on disk (default DATASET.PATH); with "
+                        "--synthetic_data, where to write the synthetic set")
     p.add_argument("--synthetic_data", action="store_true",
-                   help="build a synthetic dataset in memory")
+                   help="the synthetic set: written to --data_root and read from "
+                        "there, or built in memory without --data_root")
     p.add_argument("opts", nargs=argparse.REMAINDER, help="KEY.SUBKEY VALUE overrides")
     return p.parse_args(argv)
 
@@ -72,11 +88,11 @@ def main(argv: Optional[Sequence[str]] = None):
     bbox stats after ``inference``, the path of ``features.npz`` after
     ``visualize``."""
     args = parse_args(argv)
-    if not args.synthetic_data:
-        raise NotImplementedError(
-            "COCO data on disk is not ported yet (it needs an image decoder); "
-            "pass --synthetic_data")
-    opts = ["CTRL.QUICK_VERIFY", "True"] + list(args.opts or [])
+    opts = list(args.opts or [])
+    if args.synthetic_data:
+        # before finalize(), which derives SHOW_INTERVAL and
+        # SAVE_FREQ_WITHIN_EPOCH from it; first, so that the user's opts win
+        opts = ["CTRL.QUICK_VERIFY", "True"] + opts
     cfg = build_config(config_name=args.config_name or "default", phase=args.phase,
                        config_file=args.config_file, opts=opts, debug=bool(args.debug),
                        make_dirs=True)
@@ -84,15 +100,22 @@ def main(argv: Optional[Sequence[str]] = None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    dataset = synthetic.generate(num_images=8)
-    # the synthetic set has fewer classes than COCO's 81
+    if args.synthetic_data and not args.data_root:
+        dataset = synthetic.generate(num_images=8)
+        val_api = COCO(dataset=dataset.coco_dataset())
+        loader = make_loader(dataset, cfg)
+    else:
+        data_root = args.data_root or cfg.DATASET.PATH
+        if args.synthetic_data:
+            synthetic.write_coco(data_root, num_images=8)
+        loader, dataset, val_api = get_data(cfg, data_root=data_root)
+    # a synthetic or small dataset has fewer classes than COCO's 81
     cfg.DATASET.NUM_CLASSES = dataset.num_classes
     model = build_model(cfg, device=args.device, seed=cfg.MISC.SEED,
                         dtype=COMPUTE_DTYPES[cfg.TPU.COMPUTE_DTYPE])
     print_log(f"device: {next(model.parameters()).device}, compute dtype {model.dtype}",
               cfg.MISC.LOG_FILE, init=True)
     cfg.display(lambda msg: print_log(msg, cfg.MISC.LOG_FILE, quiet_terminal=True))
-    val_api = COCO(dataset=dataset.coco_dataset())
     trainer = Trainer(model, cfg).resume()
     if args.phase != "train":
         # the same float32 parameters, evaluated in TEST.DTYPE where it is set
@@ -108,8 +131,6 @@ def main(argv: Optional[Sequence[str]] = None):
                  detections=np.stack([o["detections"] for o in out]))
         print_log(f"saved features to {path}", cfg.MISC.LOG_FILE)
         return path
-    loader = Loader(DetectionDataset(dataset, cfg, augment=True, seed=cfg.MISC.SEED),
-                    batch_size=cfg.TRAIN.BATCH_SIZE, shuffle=True, seed=cfg.MISC.SEED)
     for stage in ("all",) if cfg.TRAIN.END2END else ("heads", "4+", "all"):
         train_model(trainer, loader, stage, val_api=val_api, val_dataset=dataset)
     return trainer

@@ -4,7 +4,9 @@ COCO evaluation.
 Port of ``feature_intertwiner_tpu/train/workflow.py``:
 
 - :class:`Trainer` holds the model, the :class:`TrainState` and the
-  epoch/iteration counters; :meth:`Trainer.resume` seeds ``big_fc`` from
+  epoch/iteration counters, and writes the live dashboard into the run's
+  folder (``utils/monitor.py``; served under ``MISC.USE_VISDOM``);
+  :meth:`Trainer.resume` seeds ``big_fc`` from
   the classifier under ``DEV.BIG_FC_INIT coco_pretrain``, then restarts
   from the newest checkpoint, or starts from a pretrained ``.npz``,
   ``.pth`` or ``.h5`` file;
@@ -16,7 +18,10 @@ Port of ``feature_intertwiner_tpu/train/workflow.py``:
   the loss line every ``SHOW_INTERVAL``, and ``SAVE_FREQ_WITHIN_EPOCH``
   saves per epoch. Each iteration's sampling generator is seeded from
   (seed, epoch, iteration), so a run resumed mid-epoch skips the iterations
-  it has done and replays nothing. With ``TRAIN.DO_VALIDATION`` and a
+  it has done and replays nothing. Under ``CTRL.PROFILE_ANALYSIS`` the
+  loader's ``next()`` ("fetch") and the step ("step", ended by a
+  synchronisation on the card) are timed and reported with each loss line
+  (``utils/profiling.py::PhaseTimer``). With ``TRAIN.DO_VALIDATION`` and a
   validation set, a stage ends with :func:`test_model`;
 - :func:`test_model` evaluates a model on a dataset: inference in chunks of
   ``TEST.BATCH_SIZE`` images through ``inference.detect`` (one scale, or
@@ -44,7 +49,9 @@ from ..evaluation import COCOeval
 from ..evaluation.rle import RLE
 from ..inference import detect
 from ..utils import convert_weights as cw
+from ..utils import monitor
 from ..utils.logging import MetricsLogger, format_loss_line, print_log
+from ..utils.profiling import PhaseTimer
 from ..utils.visualize import display_instances, require_matplotlib
 from . import checkpoint as ckpt
 from .optim import flax_paths, learning_rate, set_trainable
@@ -75,6 +82,12 @@ class Trainer:
         self.iter = 1
         self.metrics_logger = MetricsLogger(
             os.path.join(cfg.MISC.RESULT_FOLDER or ".", "metrics.jsonl"))
+        # the live dashboard: the page beside metrics.jsonl, served under
+        # MISC.USE_VISDOM
+        self._monitor = None
+        if cfg.MISC.RESULT_FOLDER:
+            monitor.write_dashboard(cfg.MISC.RESULT_FOLDER, config=cfg)
+            self._monitor = monitor.maybe_serve(cfg, cfg.MISC.RESULT_FOLDER)
 
     def resume(self) -> "Trainer":
         """Apply ``DEV.BIG_FC_INIT_LIST`` (``coco_pretrain``: ``big_fc``
@@ -207,8 +220,19 @@ def train_epoch(trainer: Trainer, loader, layers: str, epoch: int,
         do_meta_after = -1
 
     loader.set_epoch(epoch)
+    # CTRL.PROFILE_ANALYSIS: the wall time of the loader's next() ("fetch")
+    # and of the step up to its last kernel ("step"), reported with the loss
+    timer = PhaseTimer(enabled=bool(cfg.CTRL.PROFILE_ANALYSIS))
+    on_card = trainer.device.type == "cuda"
+    it = 0
     t_iter = time.time()
-    for it, batch in enumerate(loader, start=1):
+    batches = iter(loader)
+    while True:
+        with timer.phase("fetch"):
+            batch = next(batches, None)
+        if batch is None:
+            break
+        it += 1
         if it > total_iter:
             break
         if it < start_iter:
@@ -218,8 +242,11 @@ def train_epoch(trainer: Trainer, loader, layers: str, epoch: int,
         generator = torch.Generator(device=trainer.device)
         generator.manual_seed(iteration_seed(cfg.MISC.SEED, epoch, it))
         try:
-            metrics = train_step(trainer.state, cfg, to_device(batch, trainer.device), lr,
-                                 meta_gate, generator)
+            device_batch = to_device(batch, trainer.device)
+            with timer.phase("step"):
+                metrics = train_step(trainer.state, cfg, device_batch, lr, meta_gate, generator)
+                if on_card and timer.enabled:
+                    torch.cuda.synchronize(trainer.device)
         except Exception as exc:
             trainer.metrics_logger.log(epoch=epoch, iter=it,
                                        error=f"{type(exc).__name__}: {exc}")
@@ -232,6 +259,7 @@ def train_epoch(trainer: Trainer, loader, layers: str, epoch: int,
                                        dt / max(1, cfg.CTRL.SHOW_INTERVAL)),
                       cfg.MISC.LOG_FILE)
             trainer.metrics_logger.log(epoch=epoch, iter=it, lr=lr, **host)
+            timer.report(lambda m: print_log(m, cfg.MISC.LOG_FILE))
             t_iter = time.time()
         if it % save_base == 0:
             ckpt.save_checkpoint(cfg.MISC.RESULT_FOLDER, trainer.state, epoch, it,

@@ -5,8 +5,8 @@
   from its mid-stage checkpoint and ends bit-equal to an uninterrupted run,
   and ``TRAIN.DO_VALIDATION`` ending a stage with an evaluation.
 - ``python -m feature_intertwiner_tpu_torch.main``: a CPU run when asked, the
-  GPU by default in every phase, and COCO data on disk, not ported yet,
-  raising.
+  GPU by default in every phase, and a data root without annotations
+  raising ``FileNotFoundError``.
 - The data pipeline against the JAX package's (PNG files, COCO polygons,
   OpenCV): the synthetic set itself, and ``load_image_and_gt`` and the
   loader's batches on one dataset, boxes within 1 px and mini-masks on at
@@ -136,12 +136,16 @@ def test_cli_trains_on_the_cpu_when_asked(tmp_path, monkeypatch):
 def test_cli_runs_on_the_gpu_by_default_and_raises_for_what_waits(tmp_path, monkeypatch):
     """Every phase, visualize too, is accepted and wants the GPU unless
     ``--device cpu`` is given (``test_torch_visualize.py`` runs it on the
-    CPU); COCO data on disk is what still raises."""
+    CPU); a data root without COCO annotations raises ``FileNotFoundError``
+    naming the file, before any model is built (``test_torch_coco_data.py``
+    runs the phases on data on disk)."""
     monkeypatch.chdir(tmp_path)
     base = ["--synthetic_data", "--config_name", "cli", *CLI_OPTS]
+    empty = tmp_path / "no_annotations"
+    empty.mkdir()
     for phase in ("train", "inference", "visualize"):
-        with pytest.raises(NotImplementedError, match="synthetic_data"):
-            port_main.main(["--phase", phase, "--config_name", "cli"])
+        with pytest.raises(FileNotFoundError, match="instances_minival2014.json"):
+            port_main.main(["--phase", phase, "--config_name", "cli", "--data_root", str(empty)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for phase in ("train", "inference", "visualize"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
