@@ -195,7 +195,7 @@ Phases, each of which must pass:
    and outputs; under C every K4 call bit-equal to its plain version, the
    P5 call timed beside its float32 kernel, plain version and bound, K3
    within one bfloat16 rounding; both sets' ``detect()`` and step paired in
-   turns with the flagship's (medians of 6), the peak memory of each, set
+   turns with the flagship's (medians of 4), the peak memory of each, set
    D's step by kernel family and aten op; then each set on a small model
    card against CPU, to the tolerances of 8.
 21. visualize_pretrained_path: from the seeded flagship (float32) a
@@ -228,7 +228,22 @@ Phases, each of which must pass:
    logged; ``--phase inference --data_root`` from its checkpoint over the 8
    minival images: K1 1 and K2 at least 2, detections and 12 finite bbox
    stats; then the ``LOADER`` line: ms per 1024² batch of 4 over a
-   16-image set in process and on 2 and 4 workers of each mode.
+   16-image set in process and on 2 workers of each mode.
+23. data_parallel_path: the port of the JAX ``shard_map`` step
+   (``parallel/data_parallel.py``) at flagship width in bfloat16, 'all'
+   stage, 2 steps of a global batch of 4 over the train path's 8
+   synthetic 1024² images written as COCO files (``CTRL.QUICK_VERIFY``),
+   from a ``.pth`` of the tempered seeded model: ``torchrun --standalone
+   --nproc_per_node 1`` of this script's ``--dp-worker`` rank, which runs
+   ``python -m feature_intertwiner_tpu_torch.main --phase train
+   --data_root`` on NCCL: per step K1 2, K4 3, K3 2, K2 at least 1, finite losses, the
+   state (weights, BN statistics, buffer) bit-equal to the same run without
+   a group; two gloo ranks sharing the card, 2 images each: the same
+   launches per rank, both ranks' states bit-equal, rank 0's last K3 calls
+   within one bfloat16 rounding of their plain version, each rank's step
+   ms, gradient all-reduce ms and peak memory beside the NCCL rank's; then
+   in the same ranks the small model's step over the ranks on the card
+   against the CPU, to the tolerances of 8.
 ``roi_single`` also runs the ``crop`` sweep on a bfloat16 map (K4 and K5
 bit-equal to their plain versions), and ``window_probe`` K6 on C = 3 and
 on a map one channel off a pair (one channel a lane).
@@ -242,6 +257,7 @@ them.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -591,6 +607,236 @@ def log_breakdown(label, wall_ms, total_ms, by_family, top, launches):
             f"{launches[fam]:g} launches")
     for name, ms in top:
         log(f"    {ms:8.3f} ms  {name[:90]}")
+
+
+def state_digest(torch, model, buffer, buffer_cnt) -> str:
+    """SHA-1 over every tensor of the model's state_dict (weights and BN
+    statistics), the intertwiner buffer and its counts, bytes as stored."""
+    import hashlib
+
+    h = hashlib.sha1()
+    tensors = sorted(model.state_dict().items()) + [("buffer", buffer), ("cnt", buffer_cnt)]
+    for name, t in tensors:
+        h.update(name.encode())
+        h.update(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_group(cmd, cwd, timeout: float):
+    """Run ``cmd`` in its own process group, with the repository on
+    PYTHONPATH; on its time limit kill the whole group (torchrun and its
+    ranks). Returns (exit code, output)."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        return 124, out
+    return proc.returncode, out
+
+
+def small_dp_step(torch, cfg, group, rank, world):
+    """Phase 8's small train step over the ranks of ``group``, on the card
+    and on the CPU in the same group (gloo): the same seeded weights with
+    biases of N(0, 0.005), FPN tempered, the global batch of 2 128² images
+    (GT from three of the card's largest proposals per image), each rank its
+    rows, its draws and, on the CPU, the card's proposals. Returns the
+    card-against-CPU errors: (losses rel, parameters rel of each tensor's
+    largest magnitude, buffer abs, metrics on the card)."""
+    import numpy as np
+    from feature_intertwiner_tpu_torch import build_model
+    from feature_intertwiner_tpu_torch.parallel import shard_batch
+    from feature_intertwiner_tpu_torch.train.optim import set_trainable
+    from feature_intertwiner_tpu_torch.train.step import create_train_state, train_step
+
+    models = {}
+    for dev in ("cuda", "cpu"):
+        model = seeded_model(build_model, cfg, seed=3, device=dev)
+        biases = torch.Generator().manual_seed(4)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("bias"):
+                    p.copy_(torch.randn(p.shape, generator=biases) * 0.005)
+        models[dev] = temper_fpn(model)
+    rng = np.random.RandomState(5)
+    b, gt, size = 2, 5, 128
+    images = rng.randn(b, size, size, 3) * 40
+    with torch.no_grad():
+        props = models["cuda"].first_stage(
+            torch.as_tensor(images, dtype=torch.float32, device="cuda"))[3].cpu().numpy()
+    area = (props[..., 2] - props[..., 0]) * (props[..., 3] - props[..., 1])
+    boxes = np.zeros((b, gt, 4))
+    for i in range(b):
+        boxes[i, :3] = props[i, np.argsort(-area[i])[:3]] * size
+    y1x1 = rng.uniform(4, 64, (b, 2, 2))
+    boxes[:, 3:] = np.concatenate([y1x1, y1x1 + rng.uniform(16, 60, (b, 2, 2))], -1)
+    batch = {"images": images, "gt_class_ids": rng.randint(1, 8, (b, gt)), "gt_boxes": boxes,
+             "gt_masks": rng.rand(b, gt, 14, 14) > 0.5}
+    n_anchors = int(models["cuda"].anchors.shape[0])
+    draws = {"rpn": rng.rand(b, 2, n_anchors), "det": rng.rand(b, 2, 48)}
+    batch, draws = shard_batch(batch, rank, world), shard_batch(draws, rank, world)
+    runs = {}
+    for dev, model in models.items():
+        st = create_train_state(cfg, model)
+        set_trainable(model, "all")
+        dev_batch = {k: torch.as_tensor(v).to(dev, torch.int32 if k == "gt_class_ids"
+                                              else torch.float32) for k, v in batch.items()}
+        dev_draws = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                     for k, v in draws.items()}
+        if dev == "cuda":
+            propose = model._propose
+            model._propose = lambda *a: runs.setdefault("proposals", propose(*a))
+        else:
+            model._propose = lambda *a: runs["proposals"].cpu()
+        metrics = train_step(st, cfg, dev_batch, 0.01, 1.0, draws=dev_draws, group=group)
+        runs[dev] = ({k: float(v) for k, v in metrics.items()},
+                     {n: p.detach().cpu() for n, p in model.named_parameters()},
+                     st.buffer.cpu(), st.buffer_cnt.cpu())
+    (mg, pg, bg, cg), (mc, pc, bc, cc) = runs["cuda"], runs["cpu"]
+    loss_rel = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc if k.endswith("_loss"))
+    param_rel = max(float((pg[n] - pc[n]).abs().max() / pc[n].abs().max().clamp_min(1e-12))
+                    for n in pc)
+    buf_err = max(float((bg - bc).abs().max()), float((cg - cc).abs().max()))
+    return loss_rel, param_rel, buf_err, mg
+
+
+@contextlib.contextmanager
+def step_records(torch):
+    """Within the block, each ``train/workflow.py::train_step`` call is
+    recorded in ``steps``: its metrics, its ms on the host clock between two
+    synchronisations and each train kernel's launches in it; and each
+    ``mean_gradients`` call in ``reduce_ms``: (ms, the same way, gradient
+    count). Yields (steps, reduce_ms)."""
+    from feature_intertwiner_tpu_torch.ops import cuda_build
+    from feature_intertwiner_tpu_torch.train import step as step_mod
+    from feature_intertwiner_tpu_torch.train import workflow
+
+    steps, reduce_ms = [], []
+    step_fn, mean_fn = workflow.train_step, step_mod.mean_gradients
+
+    def recorded_step(*args, **kwargs):
+        counts0 = dict(cuda_build.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step_fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        steps.append(dict({k: float(v) for k, v in metrics.items()},
+                          ms=(time.perf_counter() - t0) * 1e3,
+                          launches={k: cuda_build.launches[k] - counts0.get(k, 0)
+                                    for k in TRAIN_KERNELS}))
+        return metrics
+
+    def timed_mean(params, group_):
+        params = list(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean_fn(params, group_)
+        torch.cuda.synchronize()
+        reduce_ms.append(((time.perf_counter() - t0) * 1e3, sum(p.numel() for p in params)))
+
+    workflow.train_step, step_mod.mean_gradients = recorded_step, timed_mean
+    try:
+        yield steps, reduce_ms
+    finally:
+        workflow.train_step, step_mod.mean_gradients = step_fn, mean_fn
+
+
+def bucket_parts(torch, dist, grads, group) -> dict:
+    """The parts of ``parallel/data_parallel.py::_mean_flat`` on ``grads``
+    (copied back into fresh tensors), each from a synchronised start on the
+    host clock: ms to issue its work and ms to finish it, for the
+    concatenation, the all-reduce, the division and the copy back; the
+    last of three rounds."""
+    world = dist.get_world_size(group)
+    dst = [torch.empty_like(g) for g in grads]
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        parts[name] = ((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def copy_back(flat):
+        offset = 0
+        for t in dst:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+    for _ in range(3):
+        flat = timed("cat", lambda: torch.cat([g.reshape(-1) for g in grads]))
+        timed("all_reduce", lambda: dist.all_reduce(flat, group=group))
+        timed("div", lambda: flat.div_(world))
+        timed("copy_back", lambda: copy_back(flat))
+    return dict(parts, tensors=len(grads), mb=flat.numel() * flat.element_size() / 1e6)
+
+
+def dp_worker(task: str, out_dir: str, argv) -> int:
+    """One rank of ``data_parallel_path``, started by ``torchrun``: ``python
+    -m feature_intertwiner_tpu_torch.main`` with ``argv`` (``task`` 'nccl':
+    its own group, NCCL; 'gloo': gloo ranks sharing the card), each step's
+    launches, metrics and time, the gradient all-reduce's time, the peak
+    memory, the state's digest and the gradient bucket's parts on the last
+    step's gradients (:func:`bucket_parts`); under 'gloo' also rank 0's last-step K3
+    calls against their plain version and the small model's step over the
+    ranks card against CPU. Writes ``<out_dir>/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from feature_intertwiner_tpu_torch import main as port_main
+    from feature_intertwiner_tpu_torch.config import FLAGSHIP_OVERRIDES, build_config
+    from feature_intertwiner_tpu_torch.ops import cuda_build
+    from feature_intertwiner_tpu_torch.ops import roi_align as roi_ops
+    from feature_intertwiner_tpu_torch.parallel import init_distributed
+
+    _, group = init_distributed("cuda", backend="gloo" if task == "gloo" else None)
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    with step_records(torch) as (steps, reduce_ms), \
+            Recorder(roi_ops, "roi_align_bwd") as bwd_rec:
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.launches.clear()
+        trainer = port_main.main(argv)
+        last_k3 = bwd_rec.calls[-2:]
+    st = trainer.state
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(group), "steps": steps,
+           "reduce_ms": reduce_ms, "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "digest": state_digest(torch, st.model, st.buffer, st.buffer_cnt),
+           "device": str(next(st.model.parameters()).device)}
+    out["bucket"] = bucket_parts(torch, dist, [p.grad for p in st.model.parameters()
+                                               if p.requires_grad and p.grad is not None], group)
+    if task == "gloo":
+        if rank == 0:
+            # K3 on this rank's last step, within one bfloat16 rounding of
+            # its plain version and bit-equal over two launches
+            worst, same = 0.0, True
+            for args, kwargs in last_k3:
+                got = roi_ops.roi_align_bwd(*args, **kwargs)
+                again = roi_ops.roi_align_bwd(*args, **kwargs)
+                want = roi_ops.multilevel_gather_bwd_plain(*args, **kwargs)
+                for a, b_, c in zip(got, again, want):
+                    same &= torch.equal(a, b_)
+                    tol = 2.0 ** -7 * c.float().abs() + 1e-5 * c.float().abs().max()
+                    worst = max(worst, float(((a.float() - c.float()).abs() - tol).max()))
+            out["k3"] = {"calls": len(last_k3), "excess": worst, "two_launches_equal": same,
+                         "dtype": str(last_k3[0][0][0].dtype) if last_k3 else None}
+        small = build_config("smoke_small", "train", opts=list(FLAGSHIP_OVERRIDES) + SMALL_OPTS
+                             + ["ROIS.ASSIGN_ANCHOR_BASE", "56.0"])
+        loss_rel, param_rel, buf_err, metrics = small_dp_step(torch, small, group, rank, world)
+        out["small"] = {"loss_rel": loss_rel, "param_rel": param_rel, "buf_err": buf_err,
+                        "metrics": metrics}
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
 
 
 def main() -> int:
@@ -997,7 +1243,7 @@ def main() -> int:
         steps = []
         step_fn = workflow.train_step
 
-        def recorded_step(st, cfg_, batch, lr, meta_gate, generator=None, draws=None):
+        def recorded_step(st, cfg_, batch, lr, meta_gate, generator=None, draws=None, **kw):
             """One train step, with its launches, its time (CUDA events) and
             the parameters it must and must not move."""
             before = {n: p.detach().clone() for n, p in st.model.named_parameters()}
@@ -1007,7 +1253,7 @@ def main() -> int:
             counts0 = dict(cuda_build.launches)
             t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0.record()
-            metrics = step_fn(st, cfg_, batch, lr, meta_gate, generator, draws)
+            metrics = step_fn(st, cfg_, batch, lr, meta_gate, generator, draws, **kw)
             t1.record()
             torch.cuda.synchronize()
             host = {k: float(v) for k, v in metrics.items()}
@@ -2198,7 +2444,7 @@ def main() -> int:
         bfloat16 maps), each K3 call within one bfloat16 rounding of
         its plain version (the float32 sums, each rounded once) and over two
         launches; K3's widening and rounding copies per call. Then the 'all'
-        step in bfloat16 and float32 in turns (medians of 6), and one
+        step in bfloat16 and float32 in turns (medians of 4), and one
         bfloat16 step's device time by family."""
         import shutil
         import tempfile
@@ -2223,10 +2469,10 @@ def main() -> int:
 
         k4_mism = []
 
-        def recorded_step(st, cfg_, batch, lr, meta_gate, generator=None, draws=None):
+        def recorded_step(st, cfg_, batch, lr, meta_gate, generator=None, draws=None, **kw):
             counts0 = dict(cuda_build.launches)
             k4_rec.calls.clear()
-            metrics = step_fn(st, cfg_, batch, lr, meta_gate, generator, draws)
+            metrics = step_fn(st, cfg_, batch, lr, meta_gate, generator, draws, **kw)
             torch.cuda.synchronize()
             steps.append(dict({k: float(v) for k, v in metrics.items()}, launches={
                 k: cuda_build.launches[k] - counts0.get(k, 0) for k in TRAIN_KERNELS}))
@@ -2329,8 +2575,8 @@ def main() -> int:
             workflow.train_step(t.state, tcfg, batch, 1e-4, 1.0, gen)
 
         one(t32)
-        step_ms, runs = paired({"float32": lambda: one(t32), "bfloat16": lambda: one(trainer)}, 3)
-        log(f"BF16 TRAIN step ms ['all'], medians of 6 in turns: bfloat16 "
+        step_ms, runs = paired({"float32": lambda: one(t32), "bfloat16": lambda: one(trainer)}, 2)
+        log(f"BF16 TRAIN step ms ['all'], medians of 4 in turns: bfloat16 "
             f"{step_ms['bfloat16']:.2f} (runs {', '.join(f'{x:.2f}' for x in runs['bfloat16'])}), "
             f"float32 {step_ms['float32']:.2f} (runs "
             f"{', '.join(f'{x:.2f}' for x in runs['float32'])})")
@@ -2615,12 +2861,12 @@ def main() -> int:
             buffer0 = trainer.state.buffer.clone()
             steps, k4_mism = [], []
 
-            def recorded_step(st, cfg_, batch, lr, meta_gate, generator=None, draws=None):
+            def recorded_step(st, cfg_, batch, lr, meta_gate, generator=None, draws=None, **kw):
                 counts0 = dict(cuda_build.launches)
                 k4_rec.calls.clear()
                 t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 t0.record()
-                metrics = step_fn(st, cfg_, batch, lr, meta_gate, generator, draws)
+                metrics = step_fn(st, cfg_, batch, lr, meta_gate, generator, draws, **kw)
                 t1.record()
                 torch.cuda.synchronize()
                 steps.append(dict({k: float(v) for k, v in metrics.items()},
@@ -2678,19 +2924,18 @@ def main() -> int:
                 t.model.fpn.fpn_ot_loss = True
 
         t32, t16 = trainers["float32"], trainers["bfloat16"]
-        step_ms, runs = paired({"float32": lambda: one(t32), "bfloat16": lambda: one(t16)}, 3,
+        step_ms, runs = paired({"float32": lambda: one(t32), "bfloat16": lambda: one(t16)}, 2,
                                events=True)
-        log(f"OT TRAIN step ms ['all', meta OT and FPN OT], medians of 6 in turns (CUDA "
+        log(f"OT TRAIN step ms ['all', meta OT and FPN OT], medians of 4 in turns (CUDA "
             f"events): float32 {step_ms['float32']:.2f} (runs "
             f"{', '.join(f'{x:.2f}' for x in runs['float32'])}), bfloat16 "
             f"{step_ms['bfloat16']:.2f} (runs {', '.join(f'{x:.2f}' for x in runs['bfloat16'])})")
-        for label, t in (("float32", t32), ("bfloat16", t16)):
-            fpn_ms, runs = paired({"with": lambda t=t: one(t),
-                                   "without": lambda t=t: no_fpn_ot(t)}, 2, events=True)
-            log(f"OT TRAIN {label} step ms with and without the FPN OT, medians of 4 in turns "
-                f"(CUDA events): {fpn_ms['with']:.2f} / {fpn_ms['without']:.2f} (runs "
-                f"{', '.join(f'{x:.2f}' for x in runs['with'])} / "
-                f"{', '.join(f'{x:.2f}' for x in runs['without'])})")
+        fpn_ms, runs = paired({"with": lambda: one(t16), "without": lambda: no_fpn_ot(t16)}, 2,
+                              events=True)
+        log(f"OT TRAIN bfloat16 step ms with and without the FPN OT, medians of 4 in turns "
+            f"(CUDA events): {fpn_ms['with']:.2f} / {fpn_ms['without']:.2f} (runs "
+            f"{', '.join(f'{x:.2f}' for x in runs['with'])} / "
+            f"{', '.join(f'{x:.2f}' for x in runs['without'])})")
         names = ("OT: FPN OptTrans2D forward", "OT: meta OptTrans1D forward",
                  "OT: Sinkhorn divergence forward")
         undo = [ranged(ot_mod.OptTrans2D, "forward", names[0]),
@@ -2881,11 +3126,11 @@ def main() -> int:
                   if n in watched}
         steps, k4_mism, step_fn = [], [], workflow.train_step
 
-        def recorded_step(st, cfg_, batch, lr, meta_gate, generator=None, draws=None):
+        def recorded_step(st, cfg_, batch, lr, meta_gate, generator=None, draws=None, **kw):
             counts0 = dict(cuda_build.launches)
             for rec in (bwd_rec, fwd_rec, k4_rec):
                 rec.calls.clear()               # the last step's calls only
-            metrics = step_fn(st, cfg_, batch, lr, meta_gate, generator, draws)
+            metrics = step_fn(st, cfg_, batch, lr, meta_gate, generator, draws, **kw)
             torch.cuda.synchronize()
             steps.append(dict({k: float(v) for k, v in metrics.items()}, launches={
                 k: cuda_build.launches[k] - counts0.get(k, 0) for k in TRAIN_KERNELS}))
@@ -3005,9 +3250,9 @@ def main() -> int:
             workflow.train_step(t.state, t.cfg, batch, 1e-4, 1.0, gen)
 
         one(t1)
-        step_ms, runs = paired({"factor 1": lambda: one(t1), "factor 2": lambda: one(t2)}, 3,
+        step_ms, runs = paired({"factor 1": lambda: one(t1), "factor 2": lambda: one(t2)}, 2,
                                events=True)
-        log(f"UP2 TRAIN step ms ['all', bfloat16], medians of 6 in turns (CUDA events): factor "
+        log(f"UP2 TRAIN step ms ['all', bfloat16], medians of 4 in turns (CUDA events): factor "
             f"2 with the merge {step_ms['factor 2']:.2f} (runs "
             f"{', '.join(f'{x:.2f}' for x in runs['factor 2'])}), factor 1 "
             f"{step_ms['factor 1']:.2f} (runs {', '.join(f'{x:.2f}' for x in runs['factor 1'])})")
@@ -3084,11 +3329,11 @@ def main() -> int:
         steps, k4_mism, step_fn = [], [], workflow.train_step
         counters = TRAIN_KERNELS + ("roi_align_bwd_xla",)
 
-        def recorded_step(st, cfg_, batch, lr, meta_gate, generator=None, draws=None):
+        def recorded_step(st, cfg_, batch, lr, meta_gate, generator=None, draws=None, **kw):
             counts0 = dict(cuda_build.launches)
             for rec in (bwd_rec, k4_rec):
                 rec.calls.clear()               # the last step's calls only
-            metrics = step_fn(st, cfg_, batch, lr, meta_gate, generator, draws)
+            metrics = step_fn(st, cfg_, batch, lr, meta_gate, generator, draws, **kw)
             torch.cuda.synchronize()
             steps.append(dict({k: float(v) for k, v in metrics.items()}, launches={
                 k: cuda_build.launches[k] - counts0.get(k, 0) for k in counters}))
@@ -3308,8 +3553,8 @@ def main() -> int:
         one(t1)
         step_ms, runs = paired({"flagship SGD": lambda: one(t1),
                                 "set A": lambda: one(trainers["A"]),
-                                "set B": lambda: one(trainers["B"])}, 3, events=True)
-        log("OPTIONS TRAIN step ms ['all', bfloat16], medians of 6 in turns (CUDA events): "
+                                "set B": lambda: one(trainers["B"])}, 2, events=True)
+        log("OPTIONS TRAIN step ms ['all', bfloat16], medians of 4 in turns (CUDA events): "
             + "; ".join(f"{k} {v:.2f} (runs {', '.join(f'{x:.2f}' for x in runs[k])})"
                         for k, v in step_ms.items())
             + f"; peak memory of each set's stage: A {peaks['A']:.2f} GiB, B {peaks['B']:.2f} GiB")
@@ -3490,7 +3735,7 @@ def main() -> int:
         set D (``ROIS.METHOD roi_pool``), each ``detect()`` of the two images
         (:func:`assign_detect`) and one 'all' train step
         (:func:`assign_train`); both paired in turns with the flagship's
-        (medians of 6), with their and the flagship's peak memory, and set
+        (medians of 4), with their and the flagship's peak memory, and set
         D's step by kernel family and aten op; then each set on a small
         model card against CPU: the second stage on the same proposals and
         one float32 train step, at the tolerances of ``reference``."""
@@ -3510,7 +3755,7 @@ def main() -> int:
         detects["flagship"]()
         torch.cuda.synchronize()
         peaks["flagship detect()"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        detect_ms, detect_runs = paired(detects, 3)
+        detect_ms, detect_runs = paired(detects, 2)
         tcfg = build_config("meta_105_quick_1", "train", opts=list(FLAGSHIP_OVERRIDES))
         t1 = workflow.Trainer(temper_fpn(seeded_model(build_model, tcfg, seed=0,
                                                       dtype=torch.bfloat16)), tcfg)
@@ -3529,10 +3774,10 @@ def main() -> int:
         flagship_step()
         torch.cuda.synchronize()
         peaks["flagship step"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        step_ms, step_runs = paired(steps, 3, events=True)
+        step_ms, step_runs = paired(steps, 2, events=True)
         for what, ms, runs in (("detect() of 2 (host clock)", detect_ms, detect_runs),
                                ("'all' step (CUDA events)", step_ms, step_runs)):
-            log(f"ASSIGN {what} ms [bfloat16], medians of 6 in turns: " + "; ".join(
+            log(f"ASSIGN {what} ms [bfloat16], medians of 4 in turns: " + "; ".join(
                 f"{k} {v:.2f} (runs {', '.join(f'{x:.2f}' for x in runs[k])})"
                 for k, v in ms.items()))
         log("ASSIGN peak memory [bfloat16] (torch.cuda.max_memory_allocated, GiB): "
@@ -3852,8 +4097,8 @@ def main() -> int:
         fetch and step totals logged; ``--phase inference --data_root`` from
         its checkpoint over the 8 minival images (K1 1 and K2 at least 2 per
         batch of 8, detections, 12 finite stats); then the loaders' ms per
-        1024² batch of 4 over a 16-image set: in process, and 2 and 4
-        workers of each mode."""
+        1024² batch of 4 over a 16-image set: in process, and 2 workers of
+        each mode."""
         import contextlib
         import glob
         import io
@@ -3980,10 +4225,8 @@ def main() -> int:
             bs = dcfg.TRAIN.BATCH_SIZE
             rows = {"Loader": Loader(lds, bs, seed=dcfg.MISC.SEED)}
             for mode in ("thread", "process"):
-                for nw in (2, 4):
-                    rows[f"{mode} x{nw}"] = PrefetchLoader(lds, bs, num_workers=nw,
-                                                           seed=dcfg.MISC.SEED, worker_mode=mode,
-                                                           stall_timeout=120)
+                rows[f"{mode} x2"] = PrefetchLoader(lds, bs, num_workers=2, seed=dcfg.MISC.SEED,
+                                                    worker_mode=mode, stall_timeout=120)
             ms = {}
             for name, ldr in rows.items():
                 batches, first, total = timed_epoch(ldr)
@@ -3999,6 +4242,159 @@ def main() -> int:
 
     phase("coco_disk_path", coco_disk_path)
 
+    def data_parallel_path():
+        """The JAX ``shard_map`` step's port over ``torch.distributed``
+        (``parallel/data_parallel.py``), at flagship width in bfloat16, 'all'
+        stage, 2 steps of a global batch of 4 over the train path's 8
+        synthetic 1024² images written as COCO files, from a ``.pth`` of the
+        tempered seeded model: (1) ``torchrun --nproc_per_node 1`` of ``main
+        --phase train --data_root`` on NCCL, counted from 0 per step (K1 2, K4 3, K3 2, K2 at least 1), its
+        weights, BN statistics and buffer bit-equal to the same two steps
+        without a group; (2) two gloo ranks sharing the card, 2 images each:
+        each rank's launches as in (1), finite losses, both ranks' state
+        bit-equal; rank 0's last K3 calls within one bfloat16 rounding of
+        their plain version; each rank's step ms, gradient all-reduce ms and
+        peak memory; (3) in the same two ranks, the small model's step over
+        the ranks on the card against the same on the CPU, to the
+        tolerances of 8."""
+        import io
+        import shutil
+        import tempfile
+
+        from feature_intertwiner_tpu_torch import main as port_main
+        from feature_intertwiner_tpu_torch.data import synthetic
+        from feature_intertwiner_tpu_torch.data.coco_dataset import get_data
+
+        folder = tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=os.path.join(ROOT, "build"))
+        cwd = os.getcwd()
+        try:
+            # the train path's synthetic set (1024², up to 24 instances, so
+            # that the steps have positives and a meta loss), as COCO files
+            root = os.path.join(folder, "coco")
+            synthetic.write_coco(root, num_images=8, seed=TRAIN_DATA["seed"],
+                                 size=TRAIN_DATA["size"],
+                                 max_instances=TRAIN_DATA["max_instances"])
+            flag = list(FLAGSHIP_OVERRIDES) + ["CTRL.QUICK_VERIFY", "True"]
+            n_classes = get_data(build_config("meta_105_quick_1", "train", opts=flag),
+                                 data_root=root)[1].num_classes
+            tcfg = build_config("meta_105_quick_1", "train", opts=flag + [
+                "DATASET.NUM_CLASSES", str(n_classes)])
+            model = temper_fpn(seeded_model(build_model, tcfg, seed=0))
+            pth = os.path.join(folder, "tempered.pth")
+            torch.save({"state_dict": {f"module.{k}": v.cpu()
+                                       for k, v in model.state_dict().items()}}, pth)
+            del model
+            torch.cuda.empty_cache()
+
+            def argv(name):
+                return ["--phase", "train", "--data_root", root, "--config_name", name, *flag,
+                        "TRAIN.DO_VALIDATION", "False", "TRAIN.SCHEDULE", "[0, 0, 1]",
+                        "TRAIN.KEEP_CHECKPOINTS", "1", "CTRL.SHOW_INTERVAL", "1",
+                        "MODEL.INIT_FILE_CHOICE", pth]
+
+            def ranks(task, n):
+                out = os.path.join(folder, task)
+                os.makedirs(out)
+                t0 = time.perf_counter()
+                rc, text = run_group(
+                    [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc_per_node", str(n), os.path.join(ROOT, "chip_smoke.py"),
+                     "--dp-worker", task, out, "--", *argv(f"dp_{task}")],
+                    cwd=folder, timeout=420)
+                wall = time.perf_counter() - t0
+                require(rc == 0, f"torchrun {task} x{n} exited {rc}:\n{text[-6000:]}")
+                results = []
+                for r in range(n):
+                    with open(os.path.join(out, f"rank{r}.json")) as f:
+                        results.append(json.load(f))
+                return results, wall
+
+            def check_rank(label, res):
+                steps = res["steps"]
+                for s in steps:
+                    require(step_launches_ok(s["launches"], 1),
+                            f"{label} rank {res['rank']} step launches {s['launches']}")
+                    require(all(math.isfinite(s[k]) for k in s if k.endswith("_loss")),
+                            f"{label} rank {res['rank']}: a non-finite loss")
+                require(len(steps) == 2 and len(res["reduce_ms"]) == 2,
+                        f"{label} rank {res['rank']}: {len(steps)} steps")
+                log(f"DP {label} rank {res['rank']}/{res['world']} [{res['backend']}, "
+                    f"{res['device']}]: step ms {[round(s['ms'], 2) for s in steps]}, "
+                    f"gradient all-reduce ms {[round(m, 2) for m, _ in res['reduce_ms']]} "
+                    f"over {res['reduce_ms'][0][1]} float32 gradients, peak "
+                    f"{res['peak_gb']:.2f} GiB, launches per step "
+                    f"{[s['launches'] for s in steps]}; losses " + "; ".join(
+                        " ".join(f"{k.replace('_loss', '')} {s[k]:.4f}" for k in (
+                            "total_loss", "meta_loss")) + f" positives {s['positive_rois']:.0f}"
+                        for s in steps))
+
+            # (1) one NCCL rank through torchrun, against no group
+            (one,), wall = ranks("nccl", 1)
+            check_rank("NCCL x1", one)
+            require(one["backend"] == "nccl", f"backend {one['backend']}")
+            os.chdir(folder)
+            cuda_build.launches.clear()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    step_records(torch) as (alone_steps, _):
+                trainer = port_main.main(argv("dp_nogroup"))
+            alone_s = time.perf_counter() - t0
+            require(len(alone_steps) == 2, f"{len(alone_steps)} steps without a group")
+            os.chdir(cwd)
+            st = trainer.state
+            alone = state_digest(torch, st.model, st.buffer, st.buffer_cnt)
+            log(f"DP torchrun x1 (NCCL) in {wall:.1f} s; the same run without a group in "
+                f"process {alone_s:.1f} s; state digests {one['digest'][:12]} / {alone[:12]}")
+            require(trainer.state.step == 2, f"{trainer.state.step} steps without a group")
+            require(one["digest"] == alone,
+                    "the NCCL group of one rank left another state than no group")
+            del trainer, st
+            torch.cuda.empty_cache()
+
+            # (2) two gloo ranks on the card; (3) the small model over them
+            pair, wall = ranks("gloo", 2)
+            for res in pair:
+                check_rank("gloo x2", res)
+            require(pair[0]["digest"] == pair[1]["digest"],
+                    "the two gloo ranks hold different states")
+            k3 = pair[0]["k3"]
+            log(f"DP gloo x2 in {wall:.1f} s, both ranks' states bit-equal "
+                f"({pair[0]['digest'][:12]}); rank 0's last K3 calls: {k3}")
+            require(k3["calls"] == 2 and k3["dtype"] == "torch.bfloat16" and k3["excess"] <= 0
+                    and k3["two_launches_equal"],
+                    "K3 on a gloo rank beyond one bfloat16 rounding of its plain version")
+            for res in (one, *pair):
+                bk = res["bucket"]
+                log(f"DP gradient bucket {res['backend']} x{res['world']} rank {res['rank']} "
+                    f"({bk['tensors']} tensors, {bk['mb']:.1f} MB; {smi}; host clock, ms to "
+                    f"issue / to finish from a synchronised start): " + ", ".join(
+                        f"{k} {bk[k][0]:.2f} / {bk[k][1]:.2f}"
+                        for k in ("cat", "all_reduce", "div", "copy_back")))
+            log(f"DP second step per rank, ms ({smi}; host clock, synchronised): NCCL x1 "
+                f"batch 4 {one['steps'][1]['ms']:.2f}, its gradient all-reduce "
+                f"{one['reduce_ms'][1][0]:.2f}; the same step without a group "
+                f"{alone_steps[1]['ms']:.2f} (steps {[round(s['ms'], 2) for s in alone_steps]})"
+                f"; gloo x2 batch 2 each "
+                + ", ".join(f"{r['steps'][1]['ms']:.2f}" for r in pair)
+                + ", their gradient all-reduce "
+                + ", ".join(f"{r['reduce_ms'][1][0]:.2f}" for r in pair))
+            for res in pair:
+                sm = res["small"]
+                log(f"DP small model step over 2 gloo ranks card vs CPU, rank {res['rank']}: "
+                    f"losses rel err {sm['loss_rel']:.3g}, parameters rel err "
+                    f"{sm['param_rel']:.3g}, buffer err {sm['buf_err']:.3g}, positives "
+                    f"{sm['metrics']['positive_rois']:.0f}, meta {sm['metrics']['meta_loss']:.4g}")
+                require(sm["loss_rel"] <= 1e-4 and sm["param_rel"] <= 1e-5
+                        and sm["buf_err"] <= 1e-4,
+                        f"rank {res['rank']}: the small step over ranks differs card vs CPU")
+                require(sm["metrics"]["positive_rois"] > 0 and sm["metrics"]["meta_loss"] > 0,
+                        "the small step over ranks had no positive RoI or no meta loss")
+        finally:
+            os.chdir(cwd)
+            shutil.rmtree(folder, ignore_errors=True)
+
+    phase("data_parallel_path", data_parallel_path)
+
     if failures:
         log("FAILED phases: " + ", ".join(failures))
         return 1
@@ -4011,4 +4407,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        # one rank of data_parallel_path: --dp-worker TASK OUT_DIR -- MAIN ARGS
+        sys.exit(dp_worker(sys.argv[2], sys.argv[3], sys.argv[5:]))
     sys.exit(main())

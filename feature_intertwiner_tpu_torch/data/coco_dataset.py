@@ -189,9 +189,10 @@ def annotation_path(root: str, split: str, year: str) -> str:
     return os.path.join(root, "annotations", f"instances_{split}{year}.json")
 
 
-def get_data(config, data_root: Optional[str] = None):
+def get_data(config, data_root: Optional[str] = None, rank: int = 0, world: int = 1):
     """(train loader, val :class:`Dataset`, val COCO index) of the COCO
-    layout under ``data_root`` (default ``DATASET.PATH``). Raises
+    layout under ``data_root`` (default ``DATASET.PATH``); the loader gives
+    rank ``rank``'s rows of each batch with ``world`` > 1. Raises
     ``ImportError`` without PIL and ``FileNotFoundError`` naming an
     annotation file that is missing, before reading anything."""
     require_pil("reading a COCO dataset")
@@ -218,13 +219,14 @@ def get_data(config, data_root: Optional[str] = None):
     for path, image_dir in train_sets:
         train.load_coco(path, image_dir)
     train.prepare()
-    return make_loader(train, config), val, val_api
+    return make_loader(train, config, rank, world), val, val_api
 
 
-def make_loader(dataset, config) -> PrefetchLoader:
+def make_loader(dataset, config, rank: int = 0, world: int = 1) -> PrefetchLoader:
     """The shuffled, augmented train loader of a registry on
-    ``DATA.LOADER_WORKER_NUM`` workers of ``DATA.LOADER_WORKER_MODE``."""
+    ``DATA.LOADER_WORKER_NUM`` workers of ``DATA.LOADER_WORKER_MODE``; with
+    ``world`` > 1, rank ``rank``'s rows of each ``TRAIN.BATCH_SIZE`` batch."""
     ds = DetectionDataset(dataset, config, augment=True, seed=config.MISC.SEED)
     return PrefetchLoader(ds, batch_size=config.TRAIN.BATCH_SIZE, shuffle=True,
                           num_workers=config.DATA.LOADER_WORKER_NUM, seed=config.MISC.SEED,
-                          worker_mode=config.DATA.LOADER_WORKER_MODE)
+                          worker_mode=config.DATA.LOADER_WORKER_MODE, rank=rank, world=world)

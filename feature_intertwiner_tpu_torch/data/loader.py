@@ -17,8 +17,12 @@ Port of the sample builder of ``feature_intertwiner_tpu/data/coco_dataset.py``
   batches in flight or undelivered, and yields them in the same order.
 
 Both loaders give the same batches, bit for bit: a sample depends only on
-(seed, epoch, index). Batches stay numpy on the host; no worker touches
-CUDA (the trainer copies a batch to the card, ``train/workflow.py::to_device``).
+(seed, epoch, index). Over ranks (``rank``, ``world``) the batches are the
+same global batches, of which each rank collates only its rows
+``[r·B/N, (r+1)·B/N)`` (``parallel/data_parallel.py::shard_rows``), so
+that the ranks' shards make up the single process's batch, in order.
+Batches stay numpy on the host; no worker touches CUDA (the trainer copies
+a batch to the card, ``train/workflow.py::to_device``).
 
 ``worker_mode``:
 
@@ -47,6 +51,7 @@ from typing import Dict, Iterator, List
 import numpy as np
 import torch
 
+from ..parallel.data_parallel import shard_rows
 from . import transforms as T
 
 
@@ -106,15 +111,28 @@ def collate(dataset, idxs) -> Dict[str, np.ndarray]:
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
+def rank_rows(batches: List[np.ndarray], batch_size: int, rank: int,
+              world: int) -> List[np.ndarray]:
+    """Each batch's rows of ``rank`` of ``world`` (the whole batch at
+    ``world`` 1)."""
+    if world == 1:
+        return batches
+    rows = shard_rows(batch_size, rank, world)
+    return [idxs[rows] for idxs in batches]
+
+
 class Loader:
-    """Batches of a :class:`DetectionDataset`, each built when asked for."""
+    """Batches of a :class:`DetectionDataset`, each built when asked for;
+    this rank's rows of each with ``world`` > 1."""
 
     def __init__(self, dataset: DetectionDataset, batch_size: int, shuffle: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, rank: int = 0, world: int = 1):
+        shard_rows(batch_size, rank, world)       # raises where world does not divide it
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.rank, self.world = rank, world
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -125,9 +143,10 @@ class Loader:
         self.dataset.set_epoch(epoch)
 
     def index_batches(self) -> List[np.ndarray]:
-        """The epoch's batches of dataset indices."""
-        return index_batches(len(self.dataset), self.batch_size, self.shuffle, self.seed,
-                             self._epoch)
+        """The epoch's batches of dataset indices (this rank's rows)."""
+        return rank_rows(index_batches(len(self.dataset), self.batch_size, self.shuffle,
+                                       self.seed, self._epoch),
+                         self.batch_size, self.rank, self.world)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         for idxs in self.index_batches():
@@ -160,13 +179,19 @@ def _proc_worker(dataset, task_q, result_q, threads: int) -> None:
 
 class PrefetchLoader:
     """Batches of a dataset built ahead by ``num_workers`` thread or process
-    workers (``worker_mode``), in :class:`Loader`'s order."""
+    workers (``worker_mode``), in :class:`Loader`'s order; this rank's rows
+    of each with ``world`` > 1 (which needs ``drop_last``)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, num_workers: int = 4,
                  seed: int = 0, drop_last: bool = True, prefetch: int = 4,
-                 worker_mode: str = "thread", stall_timeout: float = 300.0):
+                 worker_mode: str = "thread", stall_timeout: float = 300.0,
+                 rank: int = 0, world: int = 1):
         if worker_mode not in ("thread", "process"):
             raise ValueError(f"worker_mode {worker_mode!r}")
+        shard_rows(batch_size, rank, world)       # raises where world does not divide it
+        if world > 1 and not drop_last:
+            raise ValueError("a loader sharded over ranks drops the ragged last batch")
+        self.rank, self.world = rank, world
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -191,8 +216,9 @@ class PrefetchLoader:
             self.dataset.set_epoch(epoch)
 
     def _index_batches(self) -> List[np.ndarray]:
-        return index_batches(len(self.dataset), self.batch_size, self.shuffle, self.seed,
-                             self._epoch, self.drop_last)
+        return rank_rows(index_batches(len(self.dataset), self.batch_size, self.shuffle,
+                                       self.seed, self._epoch, self.drop_last),
+                         self.batch_size, self.rank, self.world)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         if self.worker_mode == "process":

@@ -41,6 +41,18 @@ COCO ground truth, where the JAX ``main.py`` writes it to ``DATASET.PATH``.
 Every model option of the config builds (``DEV.STRUCTURE`` other than beta
 raises in both packages).
 
+Ranks. Under ``torchrun`` (``torchrun --nproc_per_node N -m
+feature_intertwiner_tpu_torch.main ...``) every phase runs over N ranks
+(``parallel/data_parallel.py``): NCCL on ``cuda:LOCAL_RANK``, or gloo on
+the CPU with ``--device cpu``. ``TRAIN.BATCH_SIZE`` is the global batch,
+which N must divide; each rank loads and trains on its rows of it, and the
+evaluation shares each chunk of images over the ranks. Only rank 0 makes the
+result folders and writes ``log.txt``, ``metrics.jsonl``, the checkpoints,
+the detection cache and ``features.npz`` (``--phase visualize`` runs on rank
+0 alone, as the JAX phase runs on one device; the other ranks return at
+once). The rank count is
+torchrun's; ``TPU.MESH_DATA`` does not set it.
+
 Monitoring. The trainer writes ``dashboard.html`` beside ``metrics.jsonl``
 and serves the run folder on ``MISC.VIS.PORT`` (8097 where it is not set)
 under ``MISC.USE_VISDOM``; ``CTRL.PROFILE_ANALYSIS`` reports the loader's
@@ -61,6 +73,7 @@ from .data import synthetic
 from .data.coco_dataset import get_data, make_loader
 from .evaluation import COCO
 from .inference import COMPUTE_DTYPES, build_model, visualize
+from .parallel.data_parallel import init_distributed, rank_and_world
 from .train.workflow import Trainer, test_model, train_model
 from .utils.logging import print_log
 
@@ -88,6 +101,17 @@ def main(argv: Optional[Sequence[str]] = None):
     bbox stats after ``inference``, the path of ``features.npz`` after
     ``visualize``."""
     args = parse_args(argv)
+    owned = not torch.distributed.is_initialized()
+    device, group = init_distributed(args.device)
+    try:
+        return _run(args, device, group)
+    finally:
+        if group is not None and owned:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args: argparse.Namespace, device: torch.device, group):
+    rank, world = rank_and_world(group)
     opts = list(args.opts or [])
     if args.synthetic_data:
         # before finalize(), which derives SHOW_INTERVAL and
@@ -95,41 +119,49 @@ def main(argv: Optional[Sequence[str]] = None):
         opts = ["CTRL.QUICK_VERIFY", "True"] + opts
     cfg = build_config(config_name=args.config_name or "default", phase=args.phase,
                        config_file=args.config_file, opts=opts, debug=bool(args.debug),
-                       make_dirs=True)
-    cfg.MISC.LOG_FILE = os.path.join(cfg.MISC.RESULT_FOLDER, "log.txt")
+                       make_dirs=rank == 0)
+    cfg.MISC.LOG_FILE = os.path.join(cfg.MISC.RESULT_FOLDER, "log.txt") if rank == 0 else None
+    say = (lambda msg, **kw: print_log(msg, cfg.MISC.LOG_FILE, **kw)) if rank == 0 else (
+        lambda msg, **kw: None)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
     if args.synthetic_data and not args.data_root:
         dataset = synthetic.generate(num_images=8)
         val_api = COCO(dataset=dataset.coco_dataset())
-        loader = make_loader(dataset, cfg)
+        loader = make_loader(dataset, cfg, rank, world)
     else:
         data_root = args.data_root or cfg.DATASET.PATH
         if args.synthetic_data:
-            synthetic.write_coco(data_root, num_images=8)
-        loader, dataset, val_api = get_data(cfg, data_root=data_root)
+            if rank == 0:
+                synthetic.write_coco(data_root, num_images=8)
+            if group is not None:
+                torch.distributed.barrier(group)
+        loader, dataset, val_api = get_data(cfg, data_root=data_root, rank=rank, world=world)
     # a synthetic or small dataset has fewer classes than COCO's 81
     cfg.DATASET.NUM_CLASSES = dataset.num_classes
-    model = build_model(cfg, device=args.device, seed=cfg.MISC.SEED,
+    model = build_model(cfg, device=device, seed=cfg.MISC.SEED,
                         dtype=COMPUTE_DTYPES[cfg.TPU.COMPUTE_DTYPE])
-    print_log(f"device: {next(model.parameters()).device}, compute dtype {model.dtype}",
-              cfg.MISC.LOG_FILE, init=True)
-    cfg.display(lambda msg: print_log(msg, cfg.MISC.LOG_FILE, quiet_terminal=True))
-    trainer = Trainer(model, cfg).resume()
+    say(f"device: {next(model.parameters()).device}, compute dtype {model.dtype}, "
+        f"{world} rank(s)", init=True)
+    cfg.display(lambda msg: say(msg, quiet_terminal=True))
+    trainer = Trainer(model, cfg, group).resume()
     if args.phase != "train":
         # the same float32 parameters, evaluated in TEST.DTYPE where it is set
         if cfg.TEST.DTYPE and cfg.TEST.DTYPE != cfg.TPU.COMPUTE_DTYPE:
             trainer.model.dtype = COMPUTE_DTYPES[cfg.TEST.DTYPE]
     if args.phase == "inference":
-        return test_model(trainer.model, cfg, dataset, val_api, epoch=trainer.epoch)
+        return test_model(trainer.model, cfg, dataset, val_api, epoch=trainer.epoch, group=group)
     if args.phase == "visualize":
-        out = [visualize(trainer.model, [dataset.load_image(int(i))], cfg)[0]
-               for i in dataset.image_ids]
+        # rank 0's alone; the other ranks return at once and wait in no
+        # collective while it runs
         path = os.path.join(cfg.MISC.RESULT_FOLDER, "features.npz")
-        np.savez(path, features=np.stack([o["features"] for o in out]),
-                 detections=np.stack([o["detections"] for o in out]))
-        print_log(f"saved features to {path}", cfg.MISC.LOG_FILE)
+        if rank == 0:
+            out = [visualize(trainer.model, [dataset.load_image(int(i))], cfg)[0]
+                   for i in dataset.image_ids]
+            np.savez(path, features=np.stack([o["features"] for o in out]),
+                     detections=np.stack([o["detections"] for o in out]))
+            say(f"saved features to {path}")
         return path
     for stage in ("all",) if cfg.TRAIN.END2END else ("heads", "4+", "all"):
         train_model(trainer, loader, stage, val_api=val_api, val_dataset=dataset)

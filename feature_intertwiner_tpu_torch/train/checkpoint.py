@@ -10,6 +10,9 @@ and the iteration. It is written to a
 temporary name and renamed, so a reader only ever sees whole files.
 Resume takes the newest by (epoch, iteration); pruning keeps the newest by
 modification time (see the JAX module for why the two orders differ).
+Over the ranks of a group (``parallel/data_parallel.py``), whose states are
+the same, rank 0 writes and prunes and every rank waits for it; each rank
+restores from the same file.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import re
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .step import TrainState
 
@@ -49,12 +53,22 @@ def prune_old(result_folder: str, keep: int) -> None:
 
 
 def save_checkpoint(result_folder: str, state: TrainState, epoch: int,
-                    iter_ind: int, keep: int = 0) -> str:
+                    iter_ind: int, keep: int = 0, group=None) -> str:
     """Write the state at (epoch, iter_ind); then keep the ``keep`` newest
-    (0: all). Returns the path."""
+    (0: all). Returns the path. Under ``group`` only its rank 0 writes, and
+    every rank returns once the file is there."""
     d = checkpoint_dir(result_folder)
-    os.makedirs(d, exist_ok=True)
     path = os.path.join(d, f"ckpt_ep{epoch:04d}_iter{iter_ind:06d}.pt")
+    if group is None or dist.get_rank(group) == 0:
+        _write(path, state, epoch, iter_ind)
+        prune_old(result_folder, keep)
+    if group is not None:
+        dist.barrier(group)
+    return path
+
+
+def _write(path: str, state: TrainState, epoch: int, iter_ind: int) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save({
         "model": state.model.state_dict(),
@@ -66,8 +80,6 @@ def save_checkpoint(result_folder: str, state: TrainState, epoch: int,
         "iter": iter_ind,
     }, tmp)
     os.replace(tmp, path)
-    prune_old(result_folder, keep)
-    return path
 
 
 def find_last(result_folder: str) -> Optional[str]:

@@ -23,6 +23,16 @@ the model's buffers after the step. Frozen parameters have no gradient
 gave none, so that the optimizer decays and moves it as the JAX step does.
 The gradients are clipped to their global norm, and the optimizer updates
 in place.
+
+Over ranks (``group``, ``parallel/data_parallel.py``), as the JAX step
+under ``shard_map``: the Dev's statistics are summed over ranks before
+their means (the sum's gradient summed too, as the transpose of ``psum``),
+and so is the guard on small statistics, so that every rank takes the same
+branch; after the zero-fill of the trainable gradients and before the clip
+they are averaged in one flat bucket; the losses are averaged and the RoI
+counts summed; under ``TRAIN.BN_LEARN`` the new BN statistics are averaged.
+``INST_LOSS`` stays rank-local, and the OT meta loss runs on the merged
+rows on every rank.
 """
 
 from __future__ import annotations
@@ -32,6 +42,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..parallel.data_parallel import (all_reduce_sum, mean_bn_statistics, mean_gradients,
+                                      reduce_metrics)
 from .optim import OPTIM_STATE, clip_global_norm, make_optimizer
 
 EPS = 1e-20
@@ -46,11 +58,12 @@ def init_buffer(buffer_size: int, num_classes: int, feat_dim: int = 1024,
             torch.zeros((buffer_size, 1, num_classes), device=device))
 
 
-def _merge_stats(feat: torch.Tensor, cnt: torch.Tensor):
-    """[S, D, K] statistics and [S, 1, K] counts over the meta levels ->
-    their count-weighted mean [D, K] and summed count [1, K]."""
-    wsum = (feat * cnt).sum(0)
-    csum = cnt.sum(0)
+def _merge_stats(feat: torch.Tensor, cnt: torch.Tensor, group=None):
+    """[S, D, K] statistics and [S, 1, K] counts over the meta levels (and
+    the ranks of ``group``) -> their count-weighted mean [D, K] and summed
+    count [1, K]."""
+    wsum = all_reduce_sum((feat * cnt).sum(0), group)
+    csum = all_reduce_sum(cnt.sum(0), group)
     return wsum / (csum + EPS), csum
 
 
@@ -60,6 +73,7 @@ def intertwiner_meta(
     buffer_cnt: torch.Tensor,
     stats: Dict[str, torch.Tensor],
     meta_ot_fn: Optional[Callable[..., torch.Tensor]] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The buffer update and the meta loss: (loss, new buffer, new counts).
 
@@ -68,11 +82,12 @@ def intertwiner_meta(
     ``meta_ot_fn(small_rows, big_rows, row_weights)`` computes the 'ot'
     loss (``InterNet.meta_ot``), with no normalising denominator.
     ``BUFFER_SIZE`` 1 keeps the running mean of every step's big
-    statistics; a larger buffer is a FIFO of the last steps."""
+    statistics; a larger buffer is a FIFO of the last steps. ``group``:
+    the statistics are merged over its ranks."""
     buffer_size = cfg_dev["buffer_size"]
     loss_choice = cfg_dev["loss_choice"]
-    big_merged, big_csum = _merge_stats(stats["big_feat"], stats["big_cnt"])
-    has_small = (stats["small_feat"].sum() != 0).float()
+    big_merged, big_csum = _merge_stats(stats["big_feat"], stats["big_cnt"], group)
+    has_small = (all_reduce_sum(stats["small_feat"].sum().detach(), group) != 0).float()
 
     if buffer_size == 1:
         feat_sum = buffer * buffer_cnt + big_merged[None] * big_csum[None]
@@ -99,7 +114,7 @@ def intertwiner_meta(
         big_rows = big_side[small_gt]
         small_rows = stats["small_out"]
     else:
-        small_merged, small_csum = _merge_stats(stats["small_feat"], stats["small_cnt"])
+        small_merged, small_csum = _merge_stats(stats["small_feat"], stats["small_cnt"], group)
         small_csum = small_csum.clone()
         small_csum[0, 0] = 0.0                                       # no background
         w = ((small_csum[0] > 0) & (final_big_cnt[0] > 0)).float()
@@ -175,13 +190,16 @@ REG_LOSS_KEYS = ("rpn_bbox_loss", "mrcnn_bbox_loss", "mrcnn_mask_loss")
 
 def train_step(state: TrainState, cfg, batch: Dict[str, torch.Tensor], lr: float,
                meta_gate: float, generator: Optional[torch.Generator] = None,
-               draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+               draws: Optional[Dict[str, torch.Tensor]] = None,
+               group=None) -> Dict[str, torch.Tensor]:
     """One step on ``batch`` (images, gt_class_ids, gt_boxes, gt_masks as
     tensors on the model's device). Updates ``state`` in place and returns
     the metrics as tensors (no host sync): the five losses, total_loss,
     meta_loss, big_loss, fpn_ot_loss, grad_norm (with CLIP_GRAD),
     positive_rois and small_rois_p<l> (small RoIs of a class per meta level
-    l: 2-4, or 2-5 under ``DEV.ASSIGN_BOX_ON_ALL_SCALE``)."""
+    l: 2-4, or 2-5 under ``DEV.ASSIGN_BOX_ON_ALL_SCALE``). ``batch`` is this
+    rank's shard under ``group``; the metrics are then the whole batch's
+    (module docstring)."""
     model, opt = state.model, state.optimizer
     out = model.forward_train(batch["images"], batch["gt_class_ids"], batch["gt_boxes"],
                               batch["gt_masks"], generator=generator, draws=draws,
@@ -199,7 +217,7 @@ def train_step(state: TrainState, cfg, batch: Dict[str, torch.Tensor], lr: float
         dev_cfg = {"buffer_size": cfg.DEV.BUFFER_SIZE, "loss_choice": cfg.DEV.LOSS_CHOICE,
                    "inst_loss": cfg.DEV.INST_LOSS}
         meta, new_buf, new_cnt = intertwiner_meta(dev_cfg, state.buffer, state.buffer_cnt, stats,
-                                                  meta_ot_fn=model.meta_ot)
+                                                  meta_ot_fn=model.meta_ot, group=group)
         total = total + meta_gate * cfg.DEV.LOSS_FAC * meta
         big_loss = stats["big_loss"].mean()
         big_fac = cfg.DEV.BIG_LOSS_FAC if cfg.DEV.BIG_SUPERVISE else 0.0
@@ -214,6 +232,7 @@ def train_step(state: TrainState, cfg, batch: Dict[str, torch.Tensor], lr: float
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    mean_gradients(params, group)
     metrics = {k: v.detach() for k, v in detailed.items()}
     metrics.update(total_loss=total.detach(), meta_loss=meta.detach(),
                    big_loss=big_loss.detach(), fpn_ot_loss=fpn_ot.detach(),
@@ -221,11 +240,14 @@ def train_step(state: TrainState, cfg, batch: Dict[str, torch.Tensor], lr: float
     if stats is not None:
         for i, level in enumerate(model.dev_roi.meta_levels):
             metrics[f"small_rois_p{level}"] = stats["small_cnt"][i].sum()
+    metrics = reduce_metrics(metrics, group)
+    if cfg.TRAIN.BN_LEARN:
+        mean_bn_statistics(model, group)
     if cfg.TRAIN.CLIP_GRAD:
         metrics["grad_norm"] = clip_global_norm([p.grad for p in params],
                                                 cfg.TRAIN.MAX_GRAD_NORM)
-    for group in opt.param_groups:
-        group["lr"] = lr
+    for pg in opt.param_groups:
+        pg["lr"] = lr
     opt.step()
     state.buffer, state.buffer_cnt = new_buf.detach(), new_cnt.detach()
     state.step += 1

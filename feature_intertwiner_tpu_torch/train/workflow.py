@@ -17,8 +17,8 @@ Port of ``feature_intertwiner_tpu/train/workflow.py``:
   iteration, the meta-loss gate after ``EFFECT_AFER_EP_PERCENT`` of epoch 1,
   the loss line every ``SHOW_INTERVAL``, and ``SAVE_FREQ_WITHIN_EPOCH``
   saves per epoch. Each iteration's sampling generator is seeded from
-  (seed, epoch, iteration), so a run resumed mid-epoch skips the iterations
-  it has done and replays nothing. Under ``CTRL.PROFILE_ANALYSIS`` the
+  (seed, epoch, iteration, rank), so a run resumed mid-epoch skips the
+  iterations it has done and replays nothing. Under ``CTRL.PROFILE_ANALYSIS`` the
   loader's ``next()`` ("fetch") and the step ("step", ended by a
   synchronisation on the card) are timed and reported with each loss line
   (``utils/profiling.py::PhaseTimer``). With ``TRAIN.DO_VALIDATION`` and a
@@ -32,6 +32,17 @@ Port of ``feature_intertwiner_tpu/train/workflow.py``:
   AP line in ``metrics.jsonl`` and, with ``TEST.SAVE_IM``, each image's
   detections drawn to a PNG. The JAX package's ``roi_unfit_overflow``
   counter belongs to its TPU window kernel and has no counterpart here.
+
+Over ranks (a ``torch.distributed`` group, ``parallel/data_parallel.py``):
+each rank trains on its rows of every batch (``data/loader.py`` collates
+only the rank's rows), with its own sampling seed; the loss lines,
+``metrics.jsonl``, the dashboard and its server, the ``[profile]`` report
+and the checkpoints are rank 0's, and every rank waits for a checkpoint to
+be written. :func:`test_model` rounds
+``TEST.BATCH_SIZE`` up to a multiple of the rank count (JAX
+``_detect_stream``), gives each rank its share of each chunk, gathers the
+detections to rank 0, which writes the cache and runs COCOeval, and returns
+the same 12 stats on every rank.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ import torch
 from ..evaluation import COCOeval
 from ..evaluation.rle import RLE
 from ..inference import detect
+from ..parallel.data_parallel import rank_and_world, replicate, shard_rows
 from ..utils import convert_weights as cw
 from ..utils import monitor
 from ..utils.logging import MetricsLogger, format_loss_line, print_log
@@ -60,10 +72,13 @@ from .step import create_train_state, train_step
 STAGE_ORDER = {"heads": 1, "4+": 2, "all": 3}
 
 
-def iteration_seed(seed: int, epoch: int, iteration: int) -> int:
-    """The sampling seed of one iteration, a function of (seed, epoch,
-    iteration) only."""
-    return ((seed + 1009 * epoch) * 1_000_003 + iteration) % (2 ** 63)
+def iteration_seed(seed: int, epoch: int, iteration: int, rank: int = 0) -> int:
+    """The sampling seed of one iteration on one rank, a function of (seed,
+    epoch, iteration, rank) only; rank 0's is the single process's."""
+    base = ((seed + 1009 * epoch) * 1_000_003 + iteration) % (2 ** 63)
+    if rank == 0:
+        return base
+    return (base * 6364136223846793005 + rank * 1442695040888963407) % (2 ** 63)
 
 
 class Trainer:
@@ -71,23 +86,34 @@ class Trainer:
     counters, across stages. The model stays in ``eval()``: BN uses its
     running statistics in training (the JAX package's ``strict_quirks``),
     but within a step under ``TRAIN.BN_LEARN`` (``train/step.py``), so that
-    validation and inference read the running statistics."""
+    validation and inference read the running statistics.
 
-    def __init__(self, model: torch.nn.Module, cfg):
+    ``group``: the ranks it trains over (``parallel/data_parallel.py``);
+    only rank 0 logs, writes ``metrics.jsonl`` and the dashboard."""
+
+    def __init__(self, model: torch.nn.Module, cfg, group=None):
         self.model = model.eval()
         self.cfg = cfg
+        self.group = group
+        self.rank, self.world = rank_and_world(group)
         self.device = next(model.parameters()).device
         self.state = create_train_state(cfg, model)
         self.epoch = 1
         self.iter = 1
         self.metrics_logger = MetricsLogger(
-            os.path.join(cfg.MISC.RESULT_FOLDER or ".", "metrics.jsonl"))
+            os.path.join(cfg.MISC.RESULT_FOLDER or ".", "metrics.jsonl") if self.rank == 0
+            else None)
         # the live dashboard: the page beside metrics.jsonl, served under
         # MISC.USE_VISDOM
         self._monitor = None
-        if cfg.MISC.RESULT_FOLDER:
+        if cfg.MISC.RESULT_FOLDER and self.rank == 0:
             monitor.write_dashboard(cfg.MISC.RESULT_FOLDER, config=cfg)
             self._monitor = monitor.maybe_serve(cfg, cfg.MISC.RESULT_FOLDER)
+
+    def log(self, msg: str) -> None:
+        """A line on the console and in the log, from rank 0 only."""
+        if self.rank == 0:
+            print_log(msg, self.cfg.MISC.LOG_FILE)
 
     def resume(self) -> "Trainer":
         """Apply ``DEV.BIG_FC_INIT_LIST`` (``coco_pretrain``: ``big_fc``
@@ -109,8 +135,9 @@ class Trainer:
         - ``.h5`` / ``.hdf5``, Matterport keras weights (needs ``h5py``).
 
         Any other suffix raises ``ValueError``. ``TRAIN.FORCE_START_EPOCH``
-        then applies whatever the source."""
-        log = lambda m: print_log(m, self.cfg.MISC.LOG_FILE)  # noqa: E731
+        then applies whatever the source. Every rank of a group reads the
+        same file, then takes rank 0's state (``replicate``)."""
+        log = self.log
         if self.cfg.DEV.SWITCH and self.cfg.DEV.BIG_FC_INIT_LIST:
             cw.apply_cross_name_init(self.model, self.cfg.DEV.BIG_FC_INIT_LIST,
                                      flax_paths(self.model), log_fn=log)
@@ -126,13 +153,14 @@ class Trainer:
             self.epoch = self.cfg.TRAIN.FORCE_START_EPOCH
             self.iter = 1
             log(f"FORCE_START_EPOCH={self.epoch}: schedule restarted there")
+        replicate(self.model, self.state, self.group)
         return self
 
     def _read_pretrained(self, path: str):
         """(params, batch_stats) by flax leaf path from a pretrained file;
         a reference payload's buffer and counters go into the trainer."""
         cfg = self.cfg
-        log = lambda m: print_log(m, cfg.MISC.LOG_FILE)  # noqa: E731
+        log = self.log
         if path.endswith(".npz"):
             return cw.load_converted_npz(path)
         if path.endswith((".h5", ".hdf5")):
@@ -179,23 +207,24 @@ def train_model(trainer: Trainer, loader, layers: str, val_api=None, val_dataset
         trainer.iter = 1
     total_ep = int(np.sum(cfg.TRAIN.SCHEDULE[:STAGE_ORDER[layers]]))
     if trainer.epoch > total_ep:
-        print_log(f"skip {stage_name} stage ...", cfg.MISC.LOG_FILE)
+        trainer.log(f"skip {stage_name} stage ...")
         return
-    print_log(f"\n[Stage {stage_name}] start at epoch {trainer.epoch}, "
-              f"iter {trainer.iter}; stage ends at epoch {total_ep}.", cfg.MISC.LOG_FILE)
+    trainer.log(f"\n[Stage {stage_name}] start at epoch {trainer.epoch}, "
+                f"iter {trainer.iter}; stage ends at epoch {total_ep}.")
     for ep in range(trainer.epoch, total_ep + 1):
         epoch_str = f"[Ep {ep:03d}/{total_ep}]"
-        print_log(epoch_str, cfg.MISC.LOG_FILE)
+        trainer.log(epoch_str)
         train_epoch(trainer, loader, layers, ep, start_iter=trainer.iter,
                     stage_name=stage_name, epoch_str=epoch_str)
         ckpt.save_checkpoint(cfg.MISC.RESULT_FOLDER, trainer.state, ep, len(loader),
-                             keep=cfg.TRAIN.KEEP_CHECKPOINTS)
+                             keep=cfg.TRAIN.KEEP_CHECKPOINTS, group=trainer.group)
         trainer.iter = 1
         trainer.epoch = ep
     trainer.epoch += 1
     if cfg.TRAIN.DO_VALIDATION and val_dataset is not None:
-        print_log(f"\nValidation at end of stage [{stage_name}] ...", cfg.MISC.LOG_FILE)
-        test_model(trainer.model, cfg, val_dataset, val_api, epoch=trainer.epoch - 1)
+        trainer.log(f"\nValidation at end of stage [{stage_name}] ...")
+        test_model(trainer.model, cfg, val_dataset, val_api, epoch=trainer.epoch - 1,
+                   group=trainer.group)
 
 
 BATCH_KEYS = ("images", "gt_class_ids", "gt_boxes", "gt_masks")
@@ -240,11 +269,12 @@ def train_epoch(trainer: Trainer, loader, layers: str, epoch: int,
         lr = learning_rate(cfg, epoch, it)
         meta_gate = 1.0 if it > do_meta_after else 0.0
         generator = torch.Generator(device=trainer.device)
-        generator.manual_seed(iteration_seed(cfg.MISC.SEED, epoch, it))
+        generator.manual_seed(iteration_seed(cfg.MISC.SEED, epoch, it, trainer.rank))
         try:
             device_batch = to_device(batch, trainer.device)
             with timer.phase("step"):
-                metrics = train_step(trainer.state, cfg, device_batch, lr, meta_gate, generator)
+                metrics = train_step(trainer.state, cfg, device_batch, lr, meta_gate, generator,
+                                     group=trainer.group)
                 if on_card and timer.enabled:
                     torch.cuda.synchronize(trainer.device)
         except Exception as exc:
@@ -252,18 +282,18 @@ def train_epoch(trainer: Trainer, loader, layers: str, epoch: int,
                                        error=f"{type(exc).__name__}: {exc}")
             print_log(f"[ERROR] ep {epoch} iter {it}: {exc}", cfg.MISC.LOG_FILE)
             raise
-        if it % cfg.CTRL.SHOW_INTERVAL == 0 or it == start_iter or it == total_iter:
+        if trainer.rank == 0 and (it % cfg.CTRL.SHOW_INTERVAL == 0 or it == start_iter
+                                  or it == total_iter):
             host = {k: float(v) for k, v in metrics.items()}
             dt = time.time() - t_iter
-            print_log(format_loss_line(stage_name, epoch_str, it, total_iter, lr, host,
-                                       dt / max(1, cfg.CTRL.SHOW_INTERVAL)),
-                      cfg.MISC.LOG_FILE)
+            trainer.log(format_loss_line(stage_name, epoch_str, it, total_iter, lr, host,
+                                         dt / max(1, cfg.CTRL.SHOW_INTERVAL)))
             trainer.metrics_logger.log(epoch=epoch, iter=it, lr=lr, **host)
-            timer.report(lambda m: print_log(m, cfg.MISC.LOG_FILE))
+            timer.report(trainer.log)
             t_iter = time.time()
         if it % save_base == 0:
             ckpt.save_checkpoint(cfg.MISC.RESULT_FOLDER, trainer.state, epoch, it,
-                                 keep=cfg.TRAIN.KEEP_CHECKPOINTS)
+                                 keep=cfg.TRAIN.KEEP_CHECKPOINTS, group=trainer.group)
     trainer.iter = 1
 
 
@@ -307,16 +337,23 @@ def fuse_multiscale(per_scale, max_instances: int, thresh: float):
 
 
 def _detect_stream(model, cfg, val_dataset, image_ids: Sequence[int], eval_masks: bool,
-                   dims, combine):
+                   dims, combine, group=None):
     """Inference in chunks of ``TEST.BATCH_SIZE`` images. ``dims`` are
     (min_dim, max_dim) scales, None for the config's: each chunk is decoded
     once and detected at every scale; ``combine`` reduces an image's
     per-scale (boxes, class_ids, scores, full_masks) list to one. Yields
     (index, image, boxes, class_ids, scores, full_masks) in original-image
-    pixels."""
-    bs = max(1, int(cfg.TEST.BATCH_SIZE))
+    pixels. Over the ranks of ``group`` the chunk is rounded up to a
+    multiple of their count, and each rank decodes and detects only its
+    share of it (the last chunk's shares may be short or empty) and yields
+    those images."""
+    rank, world = rank_and_world(group)
+    bs = max(1, int(cfg.TEST.BATCH_SIZE), world)
+    bs += (-bs) % world
     for start in range(0, len(image_ids), bs):
-        chunk = image_ids[start:start + bs]
+        chunk = image_ids[start:start + bs][shard_rows(bs, rank, world)]
+        if not chunk:
+            continue
         images = [val_dataset.load_image(int(i)) for i in chunk]
         per_scale = [detect(model, images, cfg, with_masks=eval_masks, min_dim=lo, max_dim=hi)
                     for lo, hi in dims]
@@ -326,14 +363,14 @@ def _detect_stream(model, cfg, val_dataset, image_ids: Sequence[int], eval_masks
             yield (idx, images[k], *combine(per_image))
 
 
-def _detect_images(model, cfg, val_dataset, image_ids, eval_masks: bool):
+def _detect_images(model, cfg, val_dataset, image_ids, eval_masks: bool, group=None):
     """One scale, the config's: detections pass through unchanged."""
     yield from _detect_stream(model, cfg, val_dataset, image_ids, eval_masks, [(None, None)],
-                              combine=lambda per: per[0])
+                              combine=lambda per: per[0], group=group)
 
 
 def _detect_images_multiscale(model, cfg, val_dataset, image_ids, eval_masks: bool,
-                              scales: Sequence[int]):
+                              scales: Sequence[int], group=None):
     """Every scale ``s`` of ``scales`` (images molded to ``s``² with the
     config's aspect of min to max dim), fused per image with cross-scale
     per-class NMS."""
@@ -344,7 +381,8 @@ def _detect_images_multiscale(model, cfg, val_dataset, image_ids, eval_masks: bo
         return fuse_multiscale(per_image, cfg.TEST.DET_MAX_INSTANCES,
                                cfg.TEST.MULTI_SCALE_NMS_THRESHOLD)
 
-    yield from _detect_stream(model, cfg, val_dataset, image_ids, eval_masks, dims, combine)
+    yield from _detect_stream(model, cfg, val_dataset, image_ids, eval_masks, dims, combine,
+                              group)
 
 
 def cache_path(cfg, epoch: int, n_images: int, eval_masks: bool) -> str:
@@ -370,8 +408,19 @@ def coco_stats(coco_api, results: List[dict], img_ids: Sequence[int], iou_type: 
     return ev.summarize(log_file)
 
 
+def _broadcast(obj, group):
+    """Rank 0's ``obj`` on every rank of ``group`` (``obj`` itself without
+    one)."""
+    if group is None:
+        return obj
+    box = [obj]
+    torch.distributed.broadcast_object_list(box, src=torch.distributed.get_global_rank(group, 0),
+                                            group=group)
+    return box[0]
+
+
 def test_model(model, cfg, val_dataset, coco_api, epoch: int = 0, limit: Optional[int] = None,
-               eval_masks: bool = False) -> np.ndarray:
+               eval_masks: bool = False, group=None) -> np.ndarray:
     """COCO evaluation of ``model`` on ``val_dataset`` against ``coco_api``
     (its ground truth); returns the 12 bbox stats, and prints them (and the
     segm stats with ``eval_masks``) to the console and the log.
@@ -385,9 +434,15 @@ def test_model(model, cfg, val_dataset, coco_api, epoch: int = 0, limit: Optiona
     ``TEST.SAVE_IM`` draws each evaluated image's detections (full-size
     boxes, class names, scores) to ``<folder>/images/det_<coco id>.png``
     (``utils/visualize.py::display_instances``); it needs ``matplotlib``
-    and raises ``ImportError`` before any inference without it."""
+    and raises ``ImportError`` before any inference without it.
+
+    Over the ranks of ``group`` every rank detects its share of each chunk
+    (and draws its own images); rank 0 gathers the detections in image
+    order, writes the cache, logs and runs COCOeval; every rank returns
+    its stats."""
     if cfg.TEST.SAVE_IM:
         require_matplotlib("TEST.SAVE_IM")
+    rank, _ = rank_and_world(group)
     folder = cfg.MISC.RESULT_FOLDER or "."
     os.makedirs(folder, exist_ok=True)
     log_file = cfg.MISC.LOG_FILE
@@ -395,26 +450,29 @@ def test_model(model, cfg, val_dataset, coco_api, epoch: int = 0, limit: Optiona
     if limit:
         image_ids = image_ids[:limit]
     cache = cache_path(cfg, epoch, len(image_ids), eval_masks)
-    from_cache = os.path.exists(cache)
-    if from_cache:
+    from_cache = _broadcast(os.path.exists(cache), group)
+    results = None
+    if from_cache and rank == 0:
         print_log(f"loading cached detections: {cache}", log_file)
         with open(cache) as f:
             results = json.load(f)
-    else:
+    elif not from_cache:
         t0 = time.time()
         scales = [int(s) for s in (cfg.TEST.MULTI_SCALE or [])]
         if scales:
             stream = _detect_images_multiscale(model, cfg, val_dataset, image_ids, eval_masks,
-                                               scales)
+                                               scales, group=group)
         else:
-            stream = _detect_images(model, cfg, val_dataset, image_ids, eval_masks)
-        results = []
+            stream = _detect_images(model, cfg, val_dataset, image_ids, eval_masks, group=group)
+        position = {int(i): n for n, i in enumerate(image_ids)}
+        per_image = []
         for idx, image, boxes, class_ids, scores, full_masks in stream:
             coco_id = int(val_dataset.image_info[int(idx)]["id"])
             if cfg.TEST.SAVE_IM:
                 display_instances(image, boxes, class_ids,
                                   getattr(val_dataset, "class_names", None), scores=scores,
                                   save_path=os.path.join(folder, "images", f"det_{coco_id}.png"))
+            found = []
             for j in range(len(class_ids)):
                 y1, x1, y2, x2 = boxes[j]
                 result = {
@@ -425,15 +483,33 @@ def test_model(model, cfg, val_dataset, coco_api, epoch: int = 0, limit: Optiona
                 }
                 if eval_masks and full_masks[j] is not None:
                     result["segmentation"] = RLE.encode(full_masks[j]).to_coco()
-                results.append(result)
+                found.append(result)
+            per_image.append((position[int(idx)], found))
+        if group is not None:
+            gathered = [None] * torch.distributed.get_world_size(group)
+            torch.distributed.all_gather_object(gathered, per_image, group=group)
+            per_image = sorted(p for part in gathered for p in part)
         dt = time.time() - t0
-        print_log(f"prediction time: {dt:.2f}s ({dt / max(len(image_ids), 1):.3f} s/im)",
-                  log_file)
-        MetricsLogger(os.path.join(folder, "metrics.jsonl")).log(
-            eval_epoch=epoch, n_images=len(image_ids), prediction_s=dt)
-        with open(cache, "w") as f:
-            json.dump(results, f)
+        if rank == 0:
+            results = [r for _, found in per_image for r in found]
+            print_log(f"prediction time: {dt:.2f}s ({dt / max(len(image_ids), 1):.3f} s/im)",
+                      log_file)
+            MetricsLogger(os.path.join(folder, "metrics.jsonl")).log(
+                eval_epoch=epoch, n_images=len(image_ids), prediction_s=dt)
+            with open(cache, "w") as f:
+                json.dump(results, f)
+    stats = None
+    if rank == 0:
+        stats = _report(cfg, coco_api, val_dataset, image_ids, results, epoch, from_cache,
+                        eval_masks)
+    return _broadcast(stats, group)
 
+
+def _report(cfg, coco_api, val_dataset, image_ids, results, epoch: int, from_cache: bool,
+            eval_masks: bool) -> np.ndarray:
+    """COCOeval of ``results``, logged, with the epoch's AP line."""
+    folder = cfg.MISC.RESULT_FOLDER or "."
+    log_file = cfg.MISC.LOG_FILE
     if not results:
         print_log("no detections produced; skipping COCOeval", log_file)
         return np.zeros(12)

@@ -32,7 +32,7 @@ for name in names:
     importlib.import_module(name)
 for name in ("evaluation.rle", "evaluation.coco", "evaluation.cocoeval", "ops.window_sum",
              "tools.profile_roi", "train.workflow", "main", "data.coco_dataset",
-             "utils.monitor", "utils.profiling"):
+             "utils.monitor", "utils.profiling", "parallel", "parallel.data_parallel"):
     assert port.__name__ + "." + name in names, name
 # importing builds nothing: the RLE library is compiled at first use
 assert sys.modules["feature_intertwiner_tpu_torch.evaluation.rle"]._lib is None

@@ -189,7 +189,7 @@ def test_every_plotted_series_is_a_key_of_the_ports_lines(trained, tmp_path, mon
     cfg.MISC.RESULT_FOLDER = str(tmp_path)
     cfg.MISC.LOG_FILE = str(tmp_path / "log.txt")
 
-    def exact(model, cfg_, dataset, image_ids, eval_masks):
+    def exact(model, cfg_, dataset, image_ids, eval_masks, **kw):
         for i in image_ids:
             boxes = np.asarray([[y, x, y + h, x + w] for x, y, w, h in dataset.boxes[i]],
                                np.int32)

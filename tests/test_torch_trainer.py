@@ -64,9 +64,9 @@ def test_trainer_runs_three_stages_and_resumes_mid_stage(tmp_path, monkeypatch):
     steps = []
     step_fn = workflow.train_step
 
-    def counted(state, cfg, batch, lr, meta_gate, generator=None, draws=None):
+    def counted(state, cfg, batch, lr, meta_gate, generator=None, draws=None, **kw):
         steps.append((lr, [n for n, p in state.model.named_parameters() if p.requires_grad]))
-        return step_fn(state, cfg, batch, lr, meta_gate, generator, draws)
+        return step_fn(state, cfg, batch, lr, meta_gate, generator, draws, **kw)
 
     monkeypatch.setattr(workflow, "train_step", counted)
     whole, loader = _trainer(tmp_path / "whole", data)
@@ -77,10 +77,10 @@ def test_trainer_runs_three_stages_and_resumes_mid_stage(tmp_path, monkeypatch):
     assert whole.state.step == 6 and whole.epoch == 4
 
     # a run that dies in stage 4+ after its first step, then resumes
-    def dies(state, cfg, batch, lr, meta_gate, generator=None, draws=None):
+    def dies(state, cfg, batch, lr, meta_gate, generator=None, draws=None, **kw):
         if state.step == 3:
             raise RuntimeError("killed")
-        return step_fn(state, cfg, batch, lr, meta_gate, generator, draws)
+        return step_fn(state, cfg, batch, lr, meta_gate, generator, draws, **kw)
 
     monkeypatch.setattr(workflow, "train_step", dies)
     cut, loader = _trainer(tmp_path / "cut", data)
